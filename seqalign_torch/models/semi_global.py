@@ -1,0 +1,26 @@
+"""Semi-global ("fit") alignment model — extension beyond the reference
+(its SEMI_GLOBAL enum value is unreachable from its CLI): the pattern
+aligns globally while text end-gaps are free.  The native oracle defines
+the contract; the GPU engine always takes the direct route."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import config
+from .base import AFFINE_NOT_PORTED, PairAligner
+
+
+class SemiGlobal(PairAligner):
+    local = False
+
+    def align(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
+              gap_extend=None, device=None):
+        if gap_extend is not None:
+            raise ValueError(AFFINE_NOT_PORTED)
+        return self._align_direct(
+            np.asarray(text, dtype=np.int32),
+            np.asarray(pattern, dtype=np.int32),
+            score_matrix, alphabet_size,
+            gap_penalty, device or config.device(), semi=True,
+        )

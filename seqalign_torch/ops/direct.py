@@ -1,0 +1,187 @@
+"""Direct route: fill and walk on the device for pairs that fit one strip.
+
+K1 fills the strip with its direction words in device memory, the best
+cell is merged on the device (row-major first occurrence,
+alignSequenceCPU.cpp:191-192), and K2 walks the path there — only the
+score, the best cell and the 2-bit packed moves come back to the host,
+which replays them through the native emitter.  Pairs whose pattern
+exceeds one strip need the checkpoint engine, which this package does
+not have yet.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..native import bindings
+from . import layout, wavefront
+from .walk import unpack_moves, walk_skewed_window
+
+_LEFT, _TOP = 0, 2
+
+# Strip geometry (the JAX package's checkpoint-engine defaults): 4096
+# slots, rows per slot by pattern length.
+DEFAULT_CKPT_RPS = 4
+DEFAULT_CKPT_SLOTS = 4096
+DEEP_CKPT_RPS = 16
+DEEP_CKPT_MIN_ROWS = 36864
+
+# Cap of the walker's move list.
+MAX_DIRECT_MOVES = 4 << 20
+# Device-memory budget for the strip's direction words.
+MAX_DIRECT_DIRS_BYTES = int(
+    os.environ.get("SEQALIGN_MAX_DIRECT_DIRS_BYTES", 10 << 30)
+)
+
+
+def _pick_geometry(m: int, rps, slots):
+    if rps is not None or slots is not None:
+        return rps or DEFAULT_CKPT_RPS, slots or DEFAULT_CKPT_SLOTS
+    if m >= DEEP_CKPT_MIN_ROWS:
+        return DEEP_CKPT_RPS, DEFAULT_CKPT_SLOTS
+    return DEFAULT_CKPT_RPS, DEFAULT_CKPT_SLOTS
+
+
+def _direct_geometry(m: int):
+    """Shallowest strip of 4096 slots the pattern fits."""
+    rps, slots = _pick_geometry(m, None, None)
+    while m > rps * slots and rps < 16:
+        rps *= 2
+    return rps, slots
+
+
+def fits_direct(n: int, m: int) -> bool:
+    rps, slots = _direct_geometry(m)
+    if m > rps * slots:
+        return False
+    if n + m + 1 > MAX_DIRECT_MOVES:
+        return False
+    dirs_bytes = (layout.steps_padded(n, slots) // 16) * rps * slots * 4
+    return dirs_bytes <= MAX_DIRECT_DIRS_BYTES
+
+
+def top_row(steps: int, gap: int, zero: bool, device) -> torch.Tensor:
+    """(steps/STEPS, STEPS) int32 top boundary row H[0, t+1] of strip 0:
+    zeros (local, semi-global) or -gap*(t+1) (global)."""
+    if zero:
+        row = torch.zeros(steps, dtype=torch.int32, device=device)
+    else:
+        row = (-gap * (torch.arange(steps, device=device) + 1)).to(
+            torch.int32)
+    return row.reshape(-1, layout.STEPS)
+
+
+def best_cell(rowmax, argj, snap, rps: int, slots: int, n: int, m: int,
+              local: bool, semi: bool):
+    """(score, best_i, best_j) of one strip from row 0, merged from K1's
+    trackers on their device: local takes the max with the smallest row
+    on ties (the tracker keeps the first column in a row), the reference's
+    row-major first occurrence with its 0/0/0 floor; semi-global the
+    first best column of row m; global S[m, n] at (m, n)."""
+    rowmax = rowmax.reshape(rps, slots)
+    argj = argj.reshape(rps, slots)
+    slot = torch.arange(slots, device=rowmax.device)[None, :]
+    r_idx = torch.arange(rps, device=rowmax.device)[:, None]
+    i_all = rps * slot + r_idx + 1
+    if local:
+        best = rowmax.max()
+        ties = rowmax == best
+        win_i = torch.where(ties, i_all, 1 << 30).min()
+        bj = torch.where(ties & (i_all == win_i), argj, 0).max()
+        score, bi, bj = (int(x) for x in torch.stack([best, win_i, bj]).cpu())
+        if score <= 0:
+            return 0, 0, 0
+        return score, bi, bj
+    if semi:
+        mask = i_all == m
+        score = int(torch.where(mask, rowmax, wavefront.NEG_INF).max())
+        return score, m, int(torch.where(mask, argj, 0).max())
+    return int(snap.max()), m, n
+
+
+def direct_fill_walk(text_steps, pattern_slots, score_matrix, gap, n, m,
+                     k_alpha: int, local: bool, semi: bool, rps: int,
+                     slots: int, max_moves: int):
+    """K1 over one strip from row 0, the best-cell merge, and K2 from the
+    best cell, all on the inputs' device.
+
+    Returns (score, best_i, best_j, moves, result): Python ints, then
+    the walker's packed moves and (count, i, j, state, done) tensors.
+    """
+    bottom = top_row(text_steps.numel(), gap, local or semi,
+                     text_steps.device)
+    dirs, _, rowmax, argj, snap = wavefront.wavefront_strip(
+        text_steps, bottom, pattern_slots, score_matrix, gap, n, m, 0,
+        k_alpha=k_alpha, local=local, rps=rps, slots=slots, semi=semi,
+    )
+    score, bi, bj = best_cell(rowmax, argj, snap, rps, slots, n, m, local,
+                              semi)
+    moves, result = walk_skewed_window(
+        dirs, rps, 0, 0, bi, bj, local, max_moves,
+    )
+    return score, bi, bj, moves, result
+
+
+def strip_inputs(text, pattern, score_matrix, k_alpha: int, rps: int,
+                 slots: int, device):
+    """K1's inputs for one strip from row 0 on ``device``:
+    (text_steps, pattern_slots, score_matrix) tensors."""
+    steps_pad = layout.steps_padded(len(text), slots)
+    pat_pad = np.zeros(rps * slots, dtype=np.int32)
+    pat_pad[:len(pattern)] = pattern
+    return (
+        torch.as_tensor(layout.text_steps(text, steps_pad)).to(device),
+        torch.as_tensor(layout.pattern_slots(pat_pad, rps, slots)).to(device),
+        torch.as_tensor(layout.pack_score_matrix(score_matrix, k_alpha)).to(
+            device),
+    )
+
+
+def direct_align(text, pattern, score_matrix, k_alpha: int, gap: int,
+                 local: bool = False, semi: bool = False,
+                 rps: int | None = None, slots: int | None = None,
+                 device="cuda"):
+    """Full alignment on ``device`` (see the module docstring).
+
+    Returns (score, best_i, best_j, aligned_text_idx,
+    aligned_pattern_idx, start_text, start_pattern) — byte-identical to
+    the oracle.
+    """
+    text_np = np.asarray(text, dtype=np.int32)
+    pattern_np = np.asarray(pattern, dtype=np.int32)
+    sm = layout.pack_score_matrix(score_matrix, k_alpha)
+    n, m = text_np.shape[0], pattern_np.shape[0]
+    if rps is None and slots is None:
+        rps, slots = _direct_geometry(m)
+    else:
+        rps, slots = _pick_geometry(m, rps, slots)
+    if m > rps * slots:
+        raise ValueError(f"pattern of {m} rows exceeds one strip of "
+                         f"{rps * slots}")
+
+    max_moves = -(-(n + m + 1) // 16) * 16
+    score, bi, bj, moves_dev, result = direct_fill_walk(
+        *strip_inputs(text_np, pattern_np, sm, k_alpha, rps, slots, device),
+        gap, n, m, k_alpha=k_alpha, local=local, semi=semi, rps=rps,
+        slots=slots, max_moves=max_moves,
+    )
+    k, i, j, _, _ = (int(x) for x in result.cpu())
+    moves = unpack_moves(moves_dev.cpu().numpy(), k)
+    if not local and (i == 0 or j == 0) and not (i == 0 and j == 0):
+        # Forced first-row/column moves (alignSequenceCPU.cpp:77-81);
+        # semi-global stops at row 0 without the free text end-gap.
+        if j == 0 and i > 0:
+            moves = np.concatenate([moves, np.full(i, _TOP, np.uint8)])
+        elif i == 0 and j > 0 and not semi:
+            moves = np.concatenate([moves, np.full(j, _LEFT, np.uint8)])
+    start_i = bi if (local or semi) else m
+    start_j = bj if (local or semi) else n
+    at, ap, st, sp = bindings.emit_moves(
+        moves, start_i, start_j, local, text_np, pattern_np, k_alpha
+    )
+    if semi:
+        st, sp = (j if j > 0 else 0), 0
+    return score, bi, bj, at, ap, st, sp

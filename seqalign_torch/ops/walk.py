@@ -1,0 +1,129 @@
+"""Traceback walker over skewed direction words (K2): wrapper, plain
+version and move unpacking.
+
+The walk starts at a cell and follows K1's stored directions while it
+stays inside the tile (rows > row_lo, columns > col_lo).  Local walks
+stop on STOP and after a move that reaches row 0 or column 0.  Move p is
+packed at bits 2*(p%16) of move word p//16 — the JAX walker's layout.
+
+``walk_skewed_window`` launches the CUDA kernel (``csrc/walk.cu``) for
+words on a CUDA device and runs ``walk_skewed_window_plain`` for words on
+the CPU.  Linear gaps only (no affine gap state).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._build import library
+
+_LEFT, _DIAG, _TOP, _STOP = 0, 1, 2, 3
+
+
+def _check(words, rps, row_lo, col_lo, i0, j0, max_moves):
+    if words.dtype != torch.int32 or words.dim() != 3:
+        raise ValueError("words must be an int32 (W, slots/128, 128) tensor")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+    w_rows, srows, lanes = words.shape
+    if lanes != 128 or rps < 1 or w_rows % rps:
+        raise ValueError(f"words of shape {tuple(words.shape)} do not hold "
+                         f"whole groups of rps={rps} rows")
+    if max_moves < 0:
+        raise ValueError("max_moves must be >= 0")
+    slots = srows * 128
+    if i0 > row_lo and j0 > col_lo:
+        # The walk's sweep step only decreases, so its first read is its
+        # furthest one.
+        if i0 - row_lo > rps * slots:
+            raise ValueError(f"start row {i0} is outside the strip")
+        t = (j0 - col_lo - 1) + (i0 - row_lo - 1) // rps
+        if (t // 16) * rps >= w_rows:
+            raise ValueError(f"start column {j0} is outside the words")
+
+
+def walk_skewed_window(words, rps: int, row_lo: int, col_lo: int, i0: int,
+                       j0: int, local: bool, max_moves: int):
+    """Walk the skewed words from (i0, j0).
+
+    Returns (moves, result) on the words' device: moves is
+    (ceil(max_moves/16),) int32 packed moves, result (5,) int32 = count,
+    i, j, state (always 0, linear), done.  The walk stops at the end of
+    the move buffer with done = 0.
+    """
+    _check(words, rps, row_lo, col_lo, i0, j0, max_moves)
+    device = words.device
+    if device.type == "cpu":
+        return walk_skewed_window_plain(words, rps, row_lo, col_lo, i0, j0,
+                                        local, max_moves)
+    if device.type != "cuda":
+        raise ValueError(f"walk_skewed_window runs on cuda or cpu, "
+                         f"not {device}")
+    move_words = -(-max_moves // 16)
+    moves = torch.empty(max(move_words, 1), dtype=torch.int32, device=device)
+    result = torch.empty(5, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _kernel()(
+            words.data_ptr(), rps, words.shape[1] * 128, int(row_lo),
+            int(col_lo), int(i0), int(j0), int(local), moves.data_ptr(),
+            move_words, result.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"walk kernel launch failed: cudaError_t {rc}")
+    walk_skewed_window.launches += 1
+    return moves, result
+
+
+walk_skewed_window.launches = 0
+
+
+def _kernel():
+    fn = library("walk").sa_walk_skewed
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, i, i, i, i, p, ctypes.c_int64, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def walk_skewed_window_plain(words, rps: int, row_lo: int, col_lo: int,
+                             i0: int, j0: int, local: bool, max_moves: int):
+    """Plain version of ``walk_skewed_window``: the same walk on a host
+    copy of the words, results returned on the words' device."""
+    device = words.device
+    slots = words.shape[1] * 128
+    flat = words.reshape(-1).cpu().numpy()
+    move_words = -(-max_moves // 16)
+    capacity = move_words * 16
+    moves = np.zeros(max(move_words, 1), dtype=np.uint32)
+    i, j, count, done = int(i0), int(j0), 0, False
+    while not done and i > row_lo and j > col_lo and count < capacity:
+        il = i - row_lo - 1
+        s, r = divmod(il, rps)
+        t = j - col_lo - 1 + s
+        d = (int(flat[((t >> 4) * rps + r) * slots + s]) >> (2 * (t & 15))) & 3
+        if local and d == _STOP:
+            done = True
+            break
+        moves[count >> 4] |= np.uint32(d << (2 * (count & 15)))
+        count += 1
+        if d in (_DIAG, _TOP):
+            i -= 1
+        if d in (_DIAG, _LEFT):
+            j -= 1
+        if local and (i == 0 or j == 0):
+            done = True
+    result = torch.tensor([count, i, j, 0, int(done)], dtype=torch.int32)
+    return (torch.from_numpy(moves.view(np.int32)).to(device),
+            result.to(device))
+
+
+def unpack_moves(packed, count: int) -> np.ndarray:
+    """(ceil(max/16),) packed int32 -> (count,) uint8 move list (numpy)."""
+    packed = np.asarray(packed)
+    idx = np.arange(count)
+    return ((packed[idx // 16] >> (2 * (idx % 16))) & 3).astype(np.uint8)

@@ -1,0 +1,122 @@
+"""The slice as a whole: the port's command line (``python -m
+seqalign_torch``) against its own oracle (-c) and the JAX package's CLI,
+byte for byte, and its error paths.  The GPU engine runs its kernels'
+plain versions here (SEQALIGN_TORCH_DEVICE=cpu)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+import seqalign_torch.cli as port_cli
+import seqalign_tpu.cli as jax_cli
+from seqalign_torch import constants
+
+from .torch_support import one_torch_thread  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DNA = ["data/dna/dna_01.txt", "data/dna/dna_02.txt"]
+PROTEIN = ["-p", "data/protein/P56980.fasta",
+           "data/protein/mutated_P56980.fasta"]
+MODES = ["--global", "--local", "--semi-global"]
+
+
+def run_main(main, argv, capsys):
+    capsys.readouterr()
+    rc = main(["alignSequence", *argv])
+    return rc, capsys.readouterr().out
+
+
+def run_port(argv, device="cpu"):
+    """The port's CLI in a subprocess: (rc, stdout, stderr)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("SEQALIGN_TORCH_DEVICE", None)
+    if device is not None:
+        env["SEQALIGN_TORCH_DEVICE"] = device
+    proc = subprocess.run(
+        [sys.executable, "-m", "seqalign_torch", *argv], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+@pytest.fixture
+def cpu_engine(monkeypatch):
+    monkeypatch.setenv("SEQALIGN_TORCH_DEVICE", "cpu")
+
+
+@pytest.mark.parametrize("inputs", [DNA, PROTEIN], ids=["dna", "protein"])
+@pytest.mark.parametrize("mode", MODES)
+def test_gpu_engine_matches_oracles(inputs, mode, cpu_engine, capsys):
+    argv = [mode, *inputs]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    rc_j, out_j = run_main(jax_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == rc_j == 0
+    assert "# Score:" in out_g
+    assert out_g == out_c == out_j
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_gpu_engine_matches_jax_kernels(mode, cpu_engine, monkeypatch,
+                                        capsys):
+    monkeypatch.setenv("SEQALIGN_ENGINE", "pallas_interpret")
+    rc_g, out_g = run_main(port_cli.main, ["-g", mode, *DNA], capsys)
+    rc_j, out_j = run_main(jax_cli.main, ["-g", mode, *DNA], capsys)
+    assert rc_g == rc_j == 0
+    assert out_g == out_j
+
+
+def test_golden_protein_local_direct_route(cpu_engine, capsys):
+    # 4548 x 497: its words exceed the host budget, so -g takes the
+    # direct route (K1 + K2 on the device).
+    argv = ["--protein", "--gap-penalty", "10", "--local",
+            "data/protein/P08519.fasta", "data/protein/P10635.fasta"]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == 0
+    assert "# Score: \t57\n" in out_g
+    assert out_g == out_c
+
+
+@pytest.mark.parametrize("argv,expected", [
+    ([], constants.USAGE),
+    (["--gap-penalty", "abc", *DNA], constants.GAP_PENALTY_NOT_READ_ERROR),
+    (["no_such_file.txt", DNA[1]],
+     "no_such_file.txt file does not exist\n" + constants.SEQ_NOT_READ_ERROR),
+    (["-s", "tests/corruptScoreMatrix.txt", *DNA],
+     constants.SCORE_MATRIX_NOT_READ_ERROR),
+    (["-p", "-c"], constants.SEQ_NOT_READ_ERROR + constants.USAGE),
+], ids=["usage", "bad-gap", "missing-file", "corrupt-matrix", "no-files"])
+def test_error_paths(argv, expected):
+    rc, out, err = run_port(["-g", *argv] if argv else argv)
+    assert (rc, out, err) == (1, "", expected)
+
+
+def test_oversized_scores_give_error(tmp_path):
+    matrix = tmp_path / "big.txt"
+    matrix.write_text("200 -4 -4 -4\n-4 200 -4 -4\n-4 -4 200 -4\n"
+                      "-4 -4 -4 200\n")
+    rc, out, err = run_port(["-g", "-s", str(matrix), *DNA])
+    assert (rc, out) == (1, "")
+    assert err.startswith("error: ") and err.endswith("\n")
+    assert "[-127, 127]" in err and "Traceback" not in err
+
+
+def test_no_cuda_device_gives_mem_error():
+    # No CUDA device here, and no CPU request: the reference's MEM_ERROR.
+    rc, out, err = run_port(["-g", *DNA], device=None)
+    assert (rc, out, err) == (1, "", constants.MEM_ERROR)
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--gap-extend", "2", *DNA], "affine"),
+    (["data/dna/NC_045839.txt", "data/dna/mutated_NC_031033.1.txt"],
+     "checkpoint engine"),
+], ids=["affine", "beyond-one-strip"])
+def test_not_ported_requests_give_error(argv, needle):
+    rc, out, err = run_port(["-g", *argv])
+    assert (rc, out) == (1, "")
+    assert err.startswith("error: ") and needle in err
+    assert "Traceback" not in err
