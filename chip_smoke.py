@@ -8,30 +8,53 @@ Run from the repository root, with no arguments:
 Phases, in order; any failed check raises and the script exits non-zero
 without its last line:
 
-1. Build the CUDA kernels (K1 ``csrc/wavefront.cu``, K2 ``csrc/walk.cu``)
-   and the native oracle from the sources, all at once.
+1. Build the CUDA kernels (K1 ``csrc/wavefront.cu``, K2 ``csrc/walk.cu``,
+   K3 ``csrc/interpair.cu``, K4 ``csrc/batch_walk.cu``) and the native
+   oracle from the sources, all at once, and print ptxas's lines.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
    is exact (tolerance 0).
 3. K2 against its plain version on the words of phase 2, also with a
    move buffer shorter than the path.  Exact.
-4. The main path: the ``-g`` command line (``cli.main``, the body of
-   ``python -m seqalign_torch``) in this process on the bundled pairs,
-   each compared byte for byte with ``python -m seqalign_torch -c`` (the
-   native oracle) run in a subprocess.  The launch counters are set to 0
-   just before and read just after, and show which route each pair took.
-   One ``python -m seqalign_torch -g`` subprocess proves the module entry
-   point in a fresh process.
+4. The single-pair main path: the ``-g`` command line (``cli.main``, the
+   body of ``python -m seqalign_torch``) in this process on the bundled
+   pairs, each compared byte for byte with ``python -m seqalign_torch -c``
+   (the native oracle) run in a subprocess.  The launch counters are set
+   to 0 just before and read just after, and show which route each pair
+   took.  One ``python -m seqalign_torch -g`` subprocess proves the
+   module entry point in a fresh process.
 5. Full width: the largest bundled pair the direct route takes,
    NC_045839 x GCA_003434045 (280,482 x 48,632, rps 16 x 4096 slots),
    through ``-g``.  Its score must equal the oracle's O(n)-memory
    score-only fill, and rescoring the printed alignment must give it too.
    Then each kernel is timed at this shape with CUDA events and held
    against its plain version there.
-6. A JSON line of the kernels, the card's name and power limit from
-   nvidia-smi, and ``{"ok": true, "device": {...}}``.
+6. K3 (score-only and with direction words) and K4 against their plain
+   versions, on the card: global, local and semi-global, DNA and protein,
+   ragged lengths with padding pairs, n not a multiple of 128, tile_pairs
+   128 and 256; every score, best cell, word, move word, length and
+   final cursor, K4 with the full buffer and with 64 moves.  Exact.
+7. The batch main path: ``BatchAligner.score`` and ``.align`` on a
+   ragged mix of random and bundled pairs with empty ones among them, in
+   the three modes, DNA and protein; every score equals ``oracle_fill``'s
+   and every alignment is byte-identical to ``oracle_align``'s.  The
+   launch counters are set to 0 just before and read just after, and the
+   plain versions are replaced by a function that raises.
+8. Full width, scores: ``BatchAligner(local=True).score`` on bench.py's
+   headline workload (8,192 DNA pairs of 512 x 512, seed 42), 512
+   sampled pairs against the oracle; then K3 timed at that shape and
+   held against its plain version there.
+9. Full width, alignments: ``BatchAligner(local=True).align`` on the
+   64k-pair workload of ``scripts/bench_batch_e2e_metric.py`` (65,536
+   DNA pairs of 256 x 256, seed 9, 4 chunks), 1,024 sampled pairs
+   byte-identical to the oracle; then K3 with words and K4 timed on one
+   16,384-pair chunk and held against their plain versions there.
+10. A JSON line of the kernels, the card's name and power limit from
+    nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
+The oracle's side of phases 4, 5 and 7-9 runs in subprocesses and
+threads beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
 
@@ -54,7 +77,9 @@ from seqalign_torch import cli
 from seqalign_torch.io import parse_score_matrix_file
 from seqalign_torch.native import bindings
 from seqalign_torch.native.build import ensure_built
-from seqalign_torch.ops import _build, direct, layout, walk, wavefront
+from seqalign_torch.ops import (_build, batch_fill, batch_traceback, direct,
+                                layout, walk, wavefront)
+from seqalign_torch.parallel import BatchAligner
 from seqalign_torch.types import Request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -72,6 +97,12 @@ K1_OPS_PER_CELL = 10
 # Per move of the walk: the cell's slot, row and step (4), the word's
 # index (2), the 2 bits out of it (2), packing them (2), the i/j step (2).
 K2_OPS_PER_MOVE = 12
+# K3, per cell: H as in K1 (4) and the substitution's table index (1);
+# with direction words, the 2-bit direction as in K1 (6) besides.
+K3_OPS_PER_CELL = 5
+K3_DIRS_OPS_PER_CELL = K3_OPS_PER_CELL + 6
+# K4, per move: as K2's walk.
+K4_OPS_PER_MOVE = K2_OPS_PER_MOVE
 
 DNA = ("data/dna/dna_01.txt", "data/dna/dna_02.txt")
 NC_034972 = ("data/dna/NC_034972.1.txt", "data/dna/mutated_NC_034972.1.txt")
@@ -87,6 +118,26 @@ MAIN_PATH = [
     ("direct", ["--semi-global", *NC_034972]),
 ]
 FULL_WIDTH = ["data/dna/NC_045839.txt", "data/dna/GCA_003434045.txt"]
+
+MODES = {"global": {}, "local": {"local": True}, "semi": {"semi": True}}
+ALGO = {"global": 0, "local": 1, "semi": 2}
+# Bundled pairs in the batch main path's mix (argv of parse_arguments).
+BATCH_BUNDLED = {
+    4: [["data/dna/NC_018874.txt", "data/dna/mutated_NC_018874.txt"],
+        ["data/dna/GCA_003231495.txt", "data/dna/NC_001490.1.txt"]],
+    23: [["-p", "data/protein/P28167.fasta",
+          "data/protein/mutated_P28167.fasta"],
+         ["-p", "data/protein/P33450.fasta",
+          "data/protein/mutated_P33450.fasta"],
+         ["-p", "data/protein/P56980.fasta", "data/protein/P10635.fasta"]],
+}
+# bench.py's sw_batch_fill: pairs, text and pattern length, seed.
+SCORE_WIDTH = (8192, 512, 512, 42)
+# scripts/bench_batch_e2e_metric.py (BASELINE.json's 64k-pair batch):
+# pairs, length of both sequences, seed.
+ALIGN_WIDTH = (65536, 256, 9)
+# The local DNA matrix and gap of both workloads.
+DNA_5_4 = np.where(np.eye(4, dtype=bool), 5, -4).astype(np.int32)
 
 
 def log(*parts):
@@ -219,10 +270,17 @@ def ptxas_summary(path):
     lines = []
     for name, stack, st, ld, regs in pattern.findall(text):
         args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", name)
-        label = (f"<rps {args[1]}, slots/thread {args[2]}, track {args[3]}>"
-                 if args else "")
-        kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel)",
-                           name)
+        if args:
+            label = (f"<rps {args[1]}, slots/thread {args[2]}, "
+                     f"track {args[3]}>")
+        elif args := re.search(r"ILi(\d)ELb(\d)E", name):
+            label = f"<mode {args[1]}, dirs {args[2]}>"
+        elif args := re.search(r"ILi(\d)EE", name):
+            label = f"<mode {args[1]}>"
+        else:
+            label = ""
+        kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel|"
+                           r"interpair_kernel|batch_walk_kernel)", name)
         lines.append(f"  {kernel[1] if kernel else name}{label}: {regs} "
                      f"registers, stack {stack} B, spill stores {st} B, "
                      f"loads {ld} B")
@@ -454,6 +512,371 @@ def phase_full_width(oracle_score):
     }
 
 
+def batch_launches():
+    return {"K3-score": batch_fill.batch_score.launches,
+            "K3-dirs": batch_fill.batch_fill_dirs.launches,
+            "K4": batch_traceback.batch_walk.launches}
+
+
+def reset_batch_launches():
+    batch_fill.batch_score.launches = 0
+    batch_fill.batch_fill_dirs.launches = 0
+    batch_traceback.batch_walk.launches = 0
+
+
+@contextlib.contextmanager
+def plain_versions_forbidden():
+    """Within the block a call of a batch kernel's plain version raises:
+    the wrappers look them up by name in their modules."""
+    saved = []
+    for module, name in ((batch_fill, "batch_score_plain"),
+                         (batch_fill, "batch_fill_dirs_plain"),
+                         (batch_traceback, "batch_walk_plain")):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} ran on the main path")
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, refuse)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def timed(fn, *args, **kwargs):
+    """(result, milliseconds) of one call, host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
+def cuda_ms_best(fn, *args, reps=3, **kwargs):
+    """(result of the last call, least milliseconds) over ``reps`` calls
+    between CUDA events."""
+    best = None
+    for _ in range(reps):
+        out, ms = cuda_ms(fn, *args, **kwargs)
+        best = ms if best is None else min(best, ms)
+    return out, best
+
+
+def batch_case(rng, b, n, m, k, device):
+    """A ragged batch as the JAX wrappers take it, as tensors on
+    ``device``: the last eighth of the pairs are padding (ns = ms = 0)."""
+    texts = rng.integers(0, k, (b, n)).astype(np.int8)
+    patterns = rng.integers(0, k, (b, m)).astype(np.int8)
+    ns = rng.integers(1, n + 1, b).astype(np.int32)
+    ms = rng.integers(1, m - 2, b).astype(np.int32)
+    ns[-b // 8:] = 0
+    ms[-b // 8:] = 0
+    return [torch.from_numpy(x).to(device)
+            for x in (texts, patterns, ns, ms)]
+
+
+def walk_starts(scores, bis, bjs, local):
+    if local:
+        matched = scores > 0
+        return torch.where(matched, bis, 0), torch.where(matched, bjs, 0)
+    return bis, bjs
+
+
+def phase_batch_kernels(device="cuda", b=512, n=300, m=208):
+    """Phase 6: K3 (both variants) and K4 against their plain versions."""
+    rng = np.random.default_rng(2026)
+    errs = {"K3-score": 0, "K3-dirs": 0, "K4": 0}
+    for k in (4, 23):
+        sm = torch.from_numpy(score_matrix(k)).to(device)
+        gap = 5 if k == 4 else 10
+        for mode, kw in MODES.items():
+            texts, patterns, ns, ms = batch_case(rng, b, n, m, k, device)
+            # Score-only: a width that is not a multiple of 16.
+            narrow = patterns[:, :m - 3].contiguous()
+            got = batch_fill.batch_score(texts, narrow, ns, ms, sm, gap, k,
+                                         **kw)
+            torch.cuda.synchronize()
+            want = batch_fill.batch_score_plain(texts, narrow, ns, ms, sm,
+                                                gap, k, **kw)
+            err = max_abs_err([got], [want])
+            check(err == 0, f"K3-score {mode} k={k}: max_abs_err {err}")
+            for tile in (128, 256):
+                out = batch_fill.batch_fill_dirs(texts, patterns, ns, ms, sm,
+                                                 gap, k, tile_pairs=tile,
+                                                 **kw)
+                torch.cuda.synchronize()
+                plain = batch_fill.batch_fill_dirs_plain(
+                    texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
+                    **kw)
+                derr = max_abs_err(out, plain)
+                check(derr == 0, f"K3-dirs {mode} k={k} tile {tile}: "
+                                 f"max_abs_err {derr}")
+                bis, bjs = walk_starts(*out[:3], mode == "local")
+                moves = []
+                for max_len in (-(-(n + m) // 16) * 16, 64):
+                    wk = batch_traceback.batch_walk(
+                        out[3], ns, ms, bis, bjs, mode == "local",
+                        mode == "semi", max_len)
+                    torch.cuda.synchronize()
+                    wp = batch_traceback.batch_walk_plain(
+                        out[3], ns, ms, bis, bjs, mode == "local",
+                        mode == "semi", max_len)
+                    werr = max_abs_err(wk, wp)
+                    check(werr == 0, f"K4 {mode} k={k} tile {tile} "
+                                     f"max_len {max_len}: max_abs_err {werr}")
+                    errs["K4"] = max(errs["K4"], werr)
+                    moves.append(int(wk[1].max()))
+                check(moves[1] == 64 or moves[0] <= 64,
+                      f"K4 {mode} k={k}: the 64-move buffer did not stop "
+                      f"the longest walk ({moves})")
+                errs["K3-dirs"] = max(errs["K3-dirs"], derr)
+                log(f"K3 {mode:6s} k={k:2d} tile {tile}: {b} pairs "
+                    f"{m} x {n}, scores, best cells and every word exact; "
+                    f"K4 exact, longest walk {moves[0]} moves")
+            errs["K3-score"] = max(errs["K3-score"], err)
+    return errs
+
+
+def read_pair(argv):
+    request = Request()
+    check(cli.parse_arguments(["alignSequence", *argv], request) == 0,
+          f"cannot read {argv}")
+    return (np.asarray(request.text, dtype=np.int32),
+            np.asarray(request.pattern, dtype=np.int32))
+
+
+def batch_mix(k, seed):
+    """The batch main path's pairs: ragged random ones (1-700 letters,
+    both orientations), the bundled pairs of BATCH_BUNDLED, and pairs
+    with an empty text, pattern or both."""
+    rng = np.random.default_rng(seed)
+    texts, patterns = [], []
+    for _ in range(160):
+        texts.append(rng.integers(0, k, int(rng.integers(1, 700)))
+                     .astype(np.int32))
+        patterns.append(rng.integers(0, k, int(rng.integers(1, 700)))
+                        .astype(np.int32))
+    for argv in BATCH_BUNDLED[k]:
+        text, pattern = read_pair(argv)
+        texts += [text, pattern]
+        patterns += [pattern, text]
+    empty = np.zeros(0, np.int32)
+    texts += [empty, texts[0], empty]
+    patterns += [patterns[0], empty, empty]
+    return texts, patterns
+
+
+def batch_oracle(cases):
+    """The oracle's scores (score()'s default swap) and alignments of
+    every case of the batch main path."""
+    out = {}
+    for (k, mode), (texts, patterns) in cases.items():
+        sm = score_matrix(k)
+        gap = 5 if k == 4 else 10
+        scores, aligned = [], []
+        for t, p in zip(texts, patterns):
+            st, sp = (p, t) if len(t) < len(p) else (t, p)
+            scores.append(bindings.oracle_fill(ALGO[mode], st, sp, sm, k,
+                                               gap)[1])
+            aligned.append(bindings.oracle_align(ALGO[mode], t, p, sm, k,
+                                                 gap))
+        out[k, mode] = (scores, aligned)
+    return out
+
+
+def same_alignment(r, want):
+    at, ap, st, sp, score = want
+    return (r.score == score and r.start_in_aligned_text == st
+            and r.start_in_aligned_pattern == sp
+            and np.array_equal(r.aligned_text, at)
+            and np.array_equal(r.aligned_pattern, ap))
+
+
+def phase_batch_main_path(cases, oracle, device="cuda"):
+    """Phase 7: BatchAligner.score and .align against the oracle; returns
+    the launches of the phase."""
+    expected = oracle()
+    reset_batch_launches()
+    with plain_versions_forbidden():
+        for (k, mode), (texts, patterns) in cases.items():
+            gap = 5 if k == 4 else 10
+            aligner = BatchAligner(score_matrix(k), k, gap, device=device,
+                                   **MODES[mode])
+            before = batch_launches()
+            t0 = time.time()
+            scores = aligner.score(texts, patterns)
+            t1 = time.time()
+            results = aligner.align(texts, patterns)
+            t2 = time.time()
+            delta = {kid: v - before[kid]
+                     for kid, v in batch_launches().items()}
+            want_scores, want_aligned = expected[k, mode]
+            check(list(scores) == want_scores,
+                  f"batch score {mode} k={k}: differs from oracle_fill")
+            bad = [i for i, (r, w) in enumerate(zip(results, want_aligned))
+                   if not same_alignment(r, w)]
+            check(not bad, f"batch align {mode} k={k}: pairs {bad[:10]} "
+                           f"differ from oracle_align")
+            check(all(delta[kid] >= 1 for kid in delta),
+                  f"batch {mode} k={k}: launches {delta}")
+            log(f"batch {mode:6s} k={k:2d}: {len(texts)} pairs, score "
+                f"{t1 - t0:.2f} s, align {t2 - t1:.2f} s, launches {delta}; "
+                f"scores == oracle_fill, alignments byte-identical to "
+                f"oracle_align")
+    return batch_launches()
+
+
+def score_width_data():
+    b, n, m, seed = SCORE_WIDTH
+    rng = np.random.default_rng(seed)
+    texts = rng.integers(0, 4, (b, n)).astype(np.int32)
+    patterns = rng.integers(0, 4, (b, m)).astype(np.int32)
+    sample = np.sort(np.random.default_rng(7).choice(b, min(b, 512),
+                                                     replace=False))
+    return texts, patterns, sample
+
+
+def align_width_data():
+    b, size, seed = ALIGN_WIDTH
+    rng = np.random.default_rng(seed)
+    texts = [rng.integers(0, 4, size).astype(np.int32) for _ in range(b)]
+    patterns = [rng.integers(0, 4, size).astype(np.int32) for _ in range(b)]
+    sample = np.sort(np.random.default_rng(8).choice(b, min(b, 1024),
+                                                     replace=False))
+    return texts, patterns, sample
+
+
+def phase_score_width(data, oracle_scores, device="cuda"):
+    """Phase 8: BatchAligner(local=True).score at bench.py's headline,
+    then K3 at its bucket's shape against its plain version."""
+    texts, patterns, sample = data
+    b, n, m, _ = SCORE_WIDTH
+    aligner = BatchAligner(DNA_5_4, 4, 5, local=True, device=device)
+    reset_batch_launches()
+    with plain_versions_forbidden():
+        scores, wall_ms = timed(aligner.score, list(texts), list(patterns))
+    counts = batch_launches()
+    check(counts == {"K3-score": 1, "K3-dirs": 0, "K4": 0},
+          f"score width: launches {counts}")
+    want = oracle_scores()
+    check(list(scores[sample]) == want,
+          "score width: sampled scores differ from oracle_fill")
+    cells = b * n * m
+    log(f"score width {b} pairs {m} x {n} local: wall {wall_ms:.1f} ms, "
+        f"{cells / wall_ms / 1e6:.2f} GCUPS end to end, launches {counts}; "
+        f"{len(sample)} sampled scores == oracle_fill")
+
+    # K3 at the bucket's shape (the JAX buckets: n_pad = 639, m_pad = 512).
+    n_pad = layout.padded_width(n) - 1
+    m_pad = layout.padded_rows(m)
+    t_arr = np.zeros((b, n_pad), np.int8)
+    t_arr[:, :n] = texts
+    p_arr = np.zeros((b, m_pad), np.int8)
+    p_arr[:, :m] = patterns
+    args = [torch.from_numpy(x).to(device) for x in (
+        t_arr, p_arr, np.full(b, n, np.int32), np.full(b, m, np.int32))]
+    sm = torch.from_numpy(DNA_5_4).to(device)
+    # The kernel's launch alone: inputs transposed and outputs allocated
+    # before the events.
+    launch, (got, _, _, _) = batch_fill.kernel_launch(
+        *args, sm, 5, 4, True, False, None, False)
+    _, k3_ms = cuda_ms_best(launch)
+    check(np.array_equal(got.cpu().numpy(), scores),
+          "score width: K3 differs from the BatchAligner run")
+    plain, plain_ms = timed(batch_fill.batch_score_plain, *args, sm, 5, 4,
+                            local=True)
+    err = max_abs_err([got], [plain])
+    check(err == 0, f"score width: K3 max_abs_err {err}")
+    log(f"score width: K3 {k3_ms:.3f} ms (its launch alone, CUDA events, "
+        f"best of 3) = "
+        f"{cells / k3_ms / 1e6:.1f} GCUPS; plain {plain_ms:.1f} ms; exact")
+    nbytes = b * (n_pad + m_pad) + 3 * 4 * b   # letters, ns, ms, scores
+    return {
+        "shape": f"{b} pairs, {m} x {n} in a {m_pad} x {n_pad} bucket, "
+                 f"local DNA",
+        "wall_ms": wall_ms, "gcups_wall": cells / wall_ms / 1e6,
+        "gcups_kernel": cells / k3_ms / 1e6, "counts": counts,
+        "K3-score": bound(nbytes, cells * K3_OPS_PER_CELL) | {
+            "ms": k3_ms, "plain_ms": plain_ms, "err": err},
+    }
+
+
+def phase_align_width(data, oracle_aligned, device="cuda"):
+    """Phase 9: BatchAligner(local=True).align on the 64k-pair workload,
+    then K3 with words and K4 on one chunk against their plain
+    versions."""
+    texts, patterns, sample = data
+    b, size, _ = ALIGN_WIDTH
+    aligner = BatchAligner(DNA_5_4, 4, 5, local=True, device=device)
+    tile, chunk = aligner._dirs_tile_pairs(size, size)
+    chunk = min(chunk, b)
+    chunks = -(-b // chunk)
+    torch.cuda.reset_peak_memory_stats()
+    reset_batch_launches()
+    with plain_versions_forbidden():
+        results, wall_ms = timed(aligner.align, texts, patterns)
+    counts = batch_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == {"K3-score": 0, "K3-dirs": chunks, "K4": chunks},
+          f"align width: launches {counts}")
+    want = oracle_aligned()
+    bad = [int(i) for i, w in zip(sample, want)
+           if not same_alignment(results[i], w)]
+    check(not bad, f"align width: pairs {bad[:10]} differ from oracle_align")
+    log(f"align width {b} pairs {size} x {size} local: wall {wall_ms:.1f} "
+        f"ms, {b / wall_ms * 1e3:.0f} pairs/s, launches {counts}, "
+        f"max_memory_allocated {peak} B; {len(sample)} sampled alignments "
+        f"byte-identical to oracle_align")
+
+    # The first chunk, as align dispatches it.
+    t_arr = np.stack(texts[:chunk]).astype(np.int8)
+    p_arr = np.stack(patterns[:chunk]).astype(np.int8)
+    ns = np.full(chunk, size, np.int32)
+    args = [torch.from_numpy(x).to(device) for x in (t_arr, p_arr, ns, ns)]
+    sm = torch.from_numpy(DNA_5_4).to(device)
+    # Each kernel's launch alone: inputs prepared and outputs allocated
+    # before the events.
+    launch, out = batch_fill.kernel_launch(*args, sm, 5, 4, True, False,
+                                           tile, True)
+    _, k3_ms = cuda_ms_best(launch)
+    bis, bjs = walk_starts(*out[:3], True)
+    max_len = 2 * size
+    launch, walked = batch_traceback.kernel_launch(
+        out[3], args[2], args[3], bis, bjs, True, False, max_len)
+    _, k4_ms = cuda_ms_best(launch)
+    plain, k3_plain_ms = timed(batch_fill.batch_fill_dirs_plain, *args, sm,
+                               5, 4, local=True, tile_pairs=tile)
+    k3_err = max_abs_err(out, plain)
+    check(k3_err == 0, f"align width: K3-dirs max_abs_err {k3_err}")
+    del plain
+    walked_plain, k4_plain_ms = timed(batch_traceback.batch_walk_plain,
+                                      out[3], args[2], args[3], bis, bjs,
+                                      True, False, max_len)
+    k4_err = max_abs_err(walked, walked_plain)
+    check(k4_err == 0, f"align width: K4 max_abs_err {k4_err}")
+    moves = int(walked[1].long().sum())
+    cells = chunk * size * size
+    log(f"align width, one {chunk}-pair chunk: K3-dirs {k3_ms:.3f} ms "
+        f"({cells / k3_ms / 1e6:.1f} GCUPS), K4 {k4_ms:.3f} ms ({moves} "
+        f"moves), each launch alone, CUDA events, best of 3; plain K3-dirs "
+        f"{k3_plain_ms:.1f} ms, plain K4 {k4_plain_ms:.1f} ms; exact")
+    words = chunk * (size // 16) * size
+    k3_bytes = chunk * 2 * size + 4 * words + 5 * 4 * chunk
+    move_words = int((-(-walked[1].long() // 16)).sum())
+    k4_bytes = 4 * moves + 4 * move_words + 7 * 4 * chunk
+    shape = f"{chunk} pairs of {size} x {size} (one of {chunks} chunks), local DNA"
+    return {
+        "wall_ms": wall_ms, "pairs_per_s": b / wall_ms * 1e3,
+        "peak_bytes": peak, "counts": counts,
+        "K3-dirs": bound(k3_bytes, cells * K3_DIRS_OPS_PER_CELL) | {
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "err": k3_err,
+            "shape": shape},
+        "K4": bound(k4_bytes, moves * K4_OPS_PER_MOVE) | {
+            "ms": k4_ms, "plain_ms": k4_plain_ms, "err": k4_err,
+            "shape": shape + f", {moves} moves"},
+    }
+
+
 def bound(nbytes, ops):
     """The least time of the work on an H100: bytes over the memory rate
     or int32 operations over the int32 rate, whichever is larger."""
@@ -501,6 +924,18 @@ def run(procs):
             0, full.text, full.pattern,
             layout.pack_score_matrix(full.score_matrix, full.alphabet_size),
             full.alphabet_size, full.gap_penalty, full.gap_penalty)[0])
+    # The batch phases' inputs, and their oracle results in threads.
+    cases = {(k, mode): batch_mix(k, 90 + k)
+             for k in (4, 23) for mode in MODES}
+    batch_expected = in_thread(batch_oracle, cases)
+    score_data = score_width_data()
+    oracle_scores = in_thread(lambda: [
+        bindings.oracle_fill(1, score_data[0][i], score_data[1][i], DNA_5_4,
+                             4, 5)[1] for i in score_data[2]])
+    align_data = align_width_data()
+    oracle_aligned = in_thread(lambda: [
+        bindings.oracle_align(1, align_data[0][i], align_data[1][i],
+                              DNA_5_4, 4, 5) for i in align_data[2]])
 
     t0 = time.time()
     k1_err, k2_err = phase_kernels()
@@ -520,6 +955,21 @@ def run(procs):
     t0 = time.time()
     fw = phase_full_width(oracle_score)
     log(f"phase 5 (full width): {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    batch_errs = phase_batch_kernels()
+    log(f"phase 6 (K3, K4 against their plain versions): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    batch_counts = phase_batch_main_path(cases, batch_expected)
+    log(f"phase 7 (batch main path): {time.time() - t0:.1f} s, launches "
+        f"{json.dumps(batch_counts)}")
+    t0 = time.time()
+    sw = phase_score_width(score_data, oracle_scores)
+    log(f"phase 8 (full width, scores): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    aw = phase_align_width(align_data, oracle_aligned)
+    log(f"phase 9 (full width, alignments): {time.time() - t0:.1f} s")
 
     summary = []
     for name, source, replaces in (
@@ -541,6 +991,32 @@ def run(procs):
             "bound_by": fw[kid]["bound_by"], "library_ms": None,
             "shape": fw["shape"],
         })
+    for name, source, replaces, row, full_counts in (
+        ("K3-score batch_score", "seqalign_torch/csrc/interpair.cu",
+         "seqalign_tpu/ops/pallas_fill.py:222", sw["K3-score"],
+         sw["counts"]),
+        ("K3-dirs batch_fill_dirs", "seqalign_torch/csrc/interpair.cu",
+         "seqalign_tpu/ops/pallas_fill.py:222", aw["K3-dirs"],
+         aw["counts"]),
+        ("K4 batch_walk", "seqalign_torch/csrc/batch_walk.cu",
+         "seqalign_tpu/ops/batch_traceback.py:187", aw["K4"], aw["counts"]),
+    ):
+        kid = name.split()[0]
+        err = max(row["err"], batch_errs[kid])
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": batch_counts[kid] + full_counts[kid],
+            "max_abs_err": err, "exact": err == 0,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row.get("shape", sw["shape"]),
+        })
+    log(json.dumps({"batch": {
+        "score_wall_ms": sw["wall_ms"], "score_gcups_wall": sw["gcups_wall"],
+        "score_gcups_kernel": sw["gcups_kernel"],
+        "align_wall_ms": aw["wall_ms"], "align_pairs_per_s": aw["pairs_per_s"],
+        "align_peak_bytes": aw["peak_bytes"]}}))
     log(f"total: {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -34,6 +34,10 @@ def _library() -> ctypes.CDLL:
             i32, i8p, i64, i8p, i64, i32p, i32, i32,
             u8p, u8p, pi64, pi64, pi64, pi32,
         ]
+        lib.sa_fill.restype = i32
+        lib.sa_fill.argtypes = [
+            i32, i8p, i64, i8p, i64, i32p, i32, i32, u8p, pi32, pi64,
+        ]
         lib.sa_traceback_nw_skewed.restype = None
         lib.sa_traceback_nw_skewed.argtypes = [
             i32p, i64, i64, i64, i64, i64, i8p, i8p, i32,
@@ -57,6 +61,11 @@ def _library() -> ctypes.CDLL:
         lib.sa_emit_moves.argtypes = [
             u8p, i64, i64, i64, i32, i8p, i8p, i32,
             u8p, u8p, pi64, pi64, pi64,
+        ]
+        lib.sa_emit_moves_batch.restype = None
+        lib.sa_emit_moves_batch.argtypes = [
+            i32p, i64, i32p, i32p, i32p, i32, i8p, i64, i8p, i64,
+            i32, i64, i64, u8p, u8p, i32p, i32p,
         ]
         _lib = lib
     return _lib
@@ -111,6 +120,33 @@ def oracle_align(
         out_sp.value,
         out_score.value,
     )
+
+
+def oracle_fill(
+    algo: int,
+    text: np.ndarray,
+    pattern: np.ndarray,
+    score_matrix: np.ndarray,
+    alphabet_size: int,
+    gap_penalty: int,
+) -> Tuple[np.ndarray, int, int]:
+    """DP fill only.  Returns (direction matrix (m+1, n+1) uint8, score,
+    best_idx)."""
+    lib = _library()
+    text = _as_i8(text)
+    pattern = _as_i8(pattern)
+    n, m = text.shape[0], pattern.shape[0]
+    dirs = np.empty((m + 1, n + 1), dtype=np.uint8)
+    out_score = ctypes.c_int32()
+    out_best = ctypes.c_int64()
+    rc = lib.sa_fill(
+        algo, text, n, pattern, m,
+        _as_matrix(score_matrix, alphabet_size), alphabet_size, gap_penalty,
+        dirs.reshape(-1), ctypes.byref(out_score), ctypes.byref(out_best),
+    )
+    if rc != 0:
+        raise MemoryError("native oracle: allocation failed")
+    return dirs, out_score.value, out_best.value
 
 
 def oracle_align_affine(
@@ -258,3 +294,45 @@ def emit_moves(
     )
     k = out_len.value
     return out_text[:k].copy(), out_pattern[:k].copy(), out_st.value, out_sp.value
+
+
+def emit_moves_batch(
+    packed: np.ndarray,
+    lens: np.ndarray,
+    start_is: np.ndarray,
+    start_js: np.ndarray,
+    mode: int,
+    texts: np.ndarray,
+    patterns: np.ndarray,
+    alphabet_size: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Replay a whole bucket's packed move lists in one native call.
+
+    packed: (B, words_per_pair) pair-major int32 move words (the device
+    walkers' 2-bit layout); texts/patterns: padded (B, n)/(B, m) int8
+    letter matrices; mode: 0 global, 1 local, 2 affine (see oracle.cpp
+    sa_emit_moves_batch).  Returns (aligned_text, aligned_pattern,
+    start_text, start_pattern) where the aligned arrays are
+    (B, 16*words_per_pair) uint8 rows — row r's alignment is the first
+    lens[r] entries.
+    """
+    lib = _library()
+    packed = np.ascontiguousarray(packed, dtype=np.int32)
+    b, words = packed.shape
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    start_is = np.ascontiguousarray(start_is, dtype=np.int32)
+    start_js = np.ascontiguousarray(start_js, dtype=np.int32)
+    texts = np.ascontiguousarray(texts, dtype=np.int8)
+    patterns = np.ascontiguousarray(patterns, dtype=np.int8)
+    out_stride = 16 * words
+    out_text = np.empty((b, out_stride), dtype=np.uint8)
+    out_pattern = np.empty((b, out_stride), dtype=np.uint8)
+    out_st = np.empty(b, dtype=np.int32)
+    out_sp = np.empty(b, dtype=np.int32)
+    lib.sa_emit_moves_batch(
+        packed, words, lens, start_is, start_js, mode,
+        texts, texts.shape[1], patterns, patterns.shape[1],
+        alphabet_size, b, out_stride, out_text, out_pattern,
+        out_st, out_sp,
+    )
+    return out_text, out_pattern, out_st, out_sp

@@ -1,0 +1,176 @@
+"""Per-pair batch traceback walk (K4): wrapper and plain version.
+
+Every pair of a batch is walked over K3's direction words
+(``batch_fill.batch_fill_dirs``, JAX layout (tiles, M/16, N,
+tile_pairs/128, 128)).  The walk starts at (ms, ns) for global and at
+(bis, bjs) for local and semi-global, reads the direction of cell
+(max(i,1), max(j,1)), forces TOP in column 0 and LEFT in row 0 for
+global and semi, and stops on STOP without recording it for local.  It
+lives while i > 0 and j > 0 (local), i > 0 (semi) or i > 0 or j > 0
+(global), and stops at max_len moves, the end of its buffer — the TPU
+walker's stop (the JAX lockstep walk clamps its step there instead; the
+two differ only on a path longer than the buffer).  Move k of pair p
+sits at bits 2*(k%16) of packed word (k//16, p); words past a pair's
+last move are 0.  A start outside the words walks no move.
+
+``batch_walk`` launches the CUDA kernel (``csrc/batch_walk.cu``) for
+tensors on a CUDA device and runs ``batch_walk_plain``, the lockstep
+walk of the JAX ``batch_device_traceback``, for tensors on the CPU.
+Linear gaps only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import library
+from .batch_fill import DIR_ROWS_PER_WORD, mode_code
+
+_LEFT, _DIAG, _TOP, _STOP = 0, 1, 2, 3
+
+
+def _check(dirs, ns, ms, bis, bjs, local, semi, max_len):
+    if local and semi:
+        raise ValueError("local and semi are exclusive")
+    if dirs.dtype != torch.int32 or dirs.dim() != 5 or dirs.shape[4] != 128:
+        raise ValueError("dirs must be an int32 (tiles, M/16, N, "
+                         "tile_pairs/128, 128) tensor")
+    if not dirs.is_contiguous():
+        raise ValueError("dirs must be contiguous")
+    tiles, _, _, sub_rows, _ = dirs.shape
+    b = tiles * sub_rows * 128
+    for name, x in (("ns", ns), ("ms", ms), ("bis", bis), ("bjs", bjs)):
+        if x.device != dirs.device:
+            raise ValueError(f"{name} is on {x.device}, expected "
+                             f"{dirs.device}")
+        if x.dtype != torch.int32 or tuple(x.shape) != (b,):
+            raise ValueError(f"{name} must be ({b},) int32")
+    if max_len < 16 or max_len % 16:
+        raise ValueError(f"max_len must be a positive multiple of 16, "
+                         f"got {max_len}")
+    if dirs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"batch_walk runs on cuda or cpu, not "
+                         f"{dirs.device}")
+
+
+def batch_walk(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
+               max_len: int):
+    """Walk every pair of the batch.
+
+    Returns (packed, lengths, i, j) on the words' device: packed is
+    (max_len/16, B) int32 moves, lengths (B,) the move counts, and i, j
+    (B,) the final cursors (semi's start offset in the text is j).
+    """
+    _check(dirs, ns, ms, bis, bjs, local, semi, max_len)
+    if dirs.device.type == "cpu":
+        return batch_walk_plain(dirs, ns, ms, bis, bjs, local, semi,
+                                max_len)
+    launch, out = kernel_launch(dirs, ns, ms, bis, bjs, local, semi, max_len)
+    launch()
+    batch_walk.launches += 1
+    return out
+
+
+batch_walk.launches = 0
+
+
+def _kernel():
+    fn = library("batch_walk").sa_batch_walk
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 5 + [ctypes.c_int64, i, i, i, i,
+                                  ctypes.c_int64] + [p] * 5)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_launch(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
+                  max_len: int):
+    """K4 on the words' CUDA device, ready to launch: the outputs
+    allocated, the move words zeroed.  Returns (launch, (packed, lengths,
+    i, j)); each ``launch()`` runs the kernel once on the current stream
+    (a second run writes the same words), raising if the launch failed,
+    and counts nothing (``batch_walk`` counts its launches)."""
+    device = dirs.device
+    tiles, num_w, n_cols, sub_rows, _ = dirs.shape
+    b = tiles * sub_rows * 128
+    i32 = torch.int32
+    packed = torch.zeros((max_len // 16, b), dtype=i32, device=device)
+    lengths = torch.empty(b, dtype=i32, device=device)
+    fi = torch.empty(b, dtype=i32, device=device)
+    fj = torch.empty(b, dtype=i32, device=device)
+    ns, ms, bis, bjs = (x.contiguous() for x in (ns, ms, bis, bjs))
+
+    def launch():
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = _kernel()(
+                dirs.data_ptr(), ns.data_ptr(), ms.data_ptr(),
+                bis.data_ptr(), bjs.data_ptr(), b, num_w, n_cols,
+                sub_rows * 128, mode_code(local, semi), max_len,
+                packed.data_ptr(), lengths.data_ptr(), fi.data_ptr(),
+                fj.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"batch walk kernel launch failed: "
+                               f"cudaError_t {rc}")
+
+    return launch, (packed, lengths, fi, fj)
+
+
+def batch_walk_plain(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
+                     max_len: int):
+    """Plain PyTorch version of ``batch_walk``: all pairs walk in
+    lockstep, one gathered word a live pair a step (a pair moves on a
+    prefix of the steps, so its k-th move is made at step k), on the
+    words' device, with identical outputs."""
+    device = dirs.device
+    tiles, num_w, n_cols, sub_rows, _ = dirs.shape
+    tile_pairs = sub_rows * 128
+    b = tiles * tile_pairs
+    flat = dirs.reshape(-1)
+    pair = torch.arange(b, device=device)
+    base = (pair // tile_pairs) * (num_w * n_cols * tile_pairs) \
+        + pair % tile_pairs
+    if local or semi:
+        i, j = bis.long(), bjs.long()
+    else:
+        i, j = ms.long(), ns.long()
+
+    def lives(i, j):
+        if local:
+            return (i > 0) & (j > 0)
+        if semi:
+            return i > 0
+        return (i > 0) | (j > 0)
+
+    inside = (i >= 0) & (i <= num_w * DIR_ROWS_PER_WORD) & (j >= 0) \
+        & (j <= n_cols)
+    alive = inside & lives(i, j)
+    packed = torch.zeros((max_len // 16, b), dtype=torch.int32,
+                         device=device)
+    k = torch.zeros(b, dtype=torch.int64, device=device)
+    for step in range(max_len):
+        if not bool(alive.any()):
+            break
+        ic = i.clamp(min=1) - 1
+        jc = j.clamp(min=1) - 1
+        at = base + ((ic // DIR_ROWS_PER_WORD) * n_cols + jc) * tile_pairs
+        at = torch.where(alive, at, base)
+        d = (flat[at] >> (2 * (ic % DIR_ROWS_PER_WORD))) & 3
+        if local:
+            emit = alive & (d != _STOP)
+        else:
+            d = torch.where(j == 0, _TOP, torch.where(i == 0, _LEFT, d))
+            emit = alive
+        shift = 2 * (step % 16)
+        packed[step // 16] |= torch.where(emit, d, 0).to(torch.int32) << shift
+        k += emit
+        i = i - (emit & ((d == _DIAG) | (d == _TOP))).long()
+        j = j - (emit & ((d == _DIAG) | (d == _LEFT))).long()
+        alive = emit & lives(i, j)
+    i32 = torch.int32
+    return packed, k.to(i32), i.to(i32), j.to(i32)
+

@@ -33,6 +33,19 @@ def pack_score_matrix(score_matrix, k_alpha: int) -> np.ndarray:
     return np.ascontiguousarray(sm.astype(np.int32))
 
 
+def padded_width(n: int) -> int:
+    """Padded DP-row width, the leading gap column included: the JAX
+    package's ``scan_engine.padded_width``, which sizes the score
+    buckets of ``BatchAligner``."""
+    return max(128, -(-(n + 1) // 128) * 128)
+
+
+def padded_rows(m: int) -> int:
+    """Padded pattern-row count, the gap row excluded (the JAX package's
+    ``scan_engine.padded_rows``)."""
+    return max(128, -(-m // 128) * 128)
+
+
 def steps_padded(n: int, slots: int) -> int:
     """Sweep steps of a strip over a text of n letters: n + slots - 1,
     rounded up to whole blocks of STEPS."""

@@ -20,7 +20,7 @@ modules = sorted(
 for name in modules:
     importlib.import_module(name)
 import chip_smoke  # runs nothing: its work is under the __main__ check
-from seqalign_torch.ops import walk, wavefront
+from seqalign_torch.ops import batch_fill, batch_traceback, walk, wavefront
 foreign = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu")
@@ -29,7 +29,10 @@ print(json.dumps({
     "modules": modules,
     "foreign": foreign,
     "launches": [wavefront.wavefront_strip.launches,
-                 walk.walk_skewed_window.launches],
+                 walk.walk_skewed_window.launches,
+                 batch_fill.batch_score.launches,
+                 batch_fill.batch_fill_dirs.launches,
+                 batch_traceback.batch_walk.launches],
 }))
 """
 
@@ -48,10 +51,13 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
     got = _probe(tmp_path)
     for name in ("seqalign_torch.ops.wavefront", "seqalign_torch.ops.walk",
                  "seqalign_torch.ops.direct", "seqalign_torch.cli",
-                 "seqalign_torch.models.base", "seqalign_torch.ops._build"):
+                 "seqalign_torch.models.base", "seqalign_torch.ops._build",
+                 "seqalign_torch.ops.batch_fill",
+                 "seqalign_torch.ops.batch_traceback",
+                 "seqalign_torch.parallel", "seqalign_torch.parallel.batch"):
         assert name in got["modules"]
     assert got["foreign"] == []
-    assert got["launches"] == [0, 0]
+    assert got["launches"] == [0, 0, 0, 0, 0]
 
 
 def test_port_sources_name_no_jax():
