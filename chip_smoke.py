@@ -28,8 +28,8 @@ without its last line:
    NC_045839 x GCA_003434045 (280,482 x 48,632, rps 16 x 4096 slots),
    through ``-g``.  Its score must equal the oracle's O(n)-memory
    score-only fill, and rescoring the printed alignment must give it too.
-   Then each kernel is timed at this shape with CUDA events and held
-   against its plain version there.
+   Then each kernel's launch alone is timed at this shape with CUDA
+   events, and held against its plain version there.
 6. K3 (score-only and with direction words) and K4 against their plain
    versions, on the card: global, local and semi-global, DNA and protein,
    ragged lengths with padding pairs, n not a multiple of 128, tile_pairs
@@ -50,11 +50,38 @@ without its last line:
    DNA pairs of 256 x 256, seed 9, 4 chunks), 1,024 sampled pairs
    byte-identical to the oracle; then K3 with words and K4 timed on one
    16,384-pair chunk and held against their plain versions there.
-10. A JSON line of the kernels, the card's name and power limit from
+10. K1's checkpoint-engine variants against their plain versions, on
+    the card: score-only with column checkpoints at rps 16 x 4096, 4 x
+    1024 and 1 x 128 slots, three modes, DNA and protein, every output
+    and checkpoint entry; then with a left column and words on a tile in
+    row 0, one in column 0 and an interior one of a real phase-1 fill
+    (rps 4 x 1024, 2048 columns), each walked by K2 and its plain
+    version.  Exact.
+11. The checkpoint engine at forced small geometries, so that the
+    paths cross many tiles: ``checkpointed_align`` on NC_034972.1 x
+    mutated_NC_034972.1 (rps 4 x 1024, 2048 columns) and on P33450 x
+    mutated_P33450 (rps 1 x 128, 256 columns), three modes each, every
+    alignment byte-identical to ``oracle_align``; launch counters read
+    around each call (K1 = strips + path tiles, K2 = path tiles), the
+    plain versions made to raise.
+12. Full width, long pair: ``-g`` on AbHV_ORF111 x mutated_AbHV_ORF111
+    (232k x 221k-byte files; both sequences past one 65,536-row strip)
+    at the default geometry (rps 16 x 4096 slots, 32,768 columns a
+    tile).  Its score must equal the oracle's score-only fill and the
+    rescored alignment; K1 = strips + path tiles and K2 = path tiles;
+    the wall, the two phases' times, the tiles crossed and the peak
+    device memory are printed.  Then, on that run's fill, one phase-1
+    strip (K1 score-only with checkpoints) and one full-size interior
+    tile (K1 with the left column and words, K2 from the middle of the
+    tile) are timed, their launches alone, and held against their plain
+    versions there; and the host's share of a path tile is timed:
+    ``Tiles.walk`` on the host's clock less the two launches, and the
+    read-back of K2's result and moves alone.
+13. A JSON line of the kernels, the card's name and power limit from
     nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
-The oracle's side of phases 4, 5 and 7-9 runs in subprocesses and
-threads beside the device phases.
+The oracle's side of phases 4, 5, 7-9, 11 and 12 runs in subprocesses
+and threads beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
 
@@ -77,8 +104,8 @@ from seqalign_torch import cli
 from seqalign_torch.io import parse_score_matrix_file
 from seqalign_torch.native import bindings
 from seqalign_torch.native.build import ensure_built
-from seqalign_torch.ops import (_build, batch_fill, batch_traceback, direct,
-                                layout, walk, wavefront)
+from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
+                                checkpoint, direct, layout, walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
 from seqalign_torch.types import Request
 
@@ -94,6 +121,8 @@ INT32_OPS_PER_S = 67e12 / 4
 # max(top, left) - gap) is 4; the 2-bit direction (two compares, two
 # selects, a shift and an or into the word) is 6.
 K1_OPS_PER_CELL = 10
+# Score-only (the checkpoint engine's phase 1): H alone, 4.
+K1_SCORE_OPS_PER_CELL = 4
 # Per move of the walk: the cell's slot, row and step (4), the word's
 # index (2), the 2 bits out of it (2), packing them (2), the i/j step (2).
 K2_OPS_PER_MOVE = 12
@@ -118,6 +147,19 @@ MAIN_PATH = [
     ("direct", ["--semi-global", *NC_034972]),
 ]
 FULL_WIDTH = ["data/dna/NC_045839.txt", "data/dna/GCA_003434045.txt"]
+# The checkpoint engine's full-width pair: both sequences past one strip.
+LONG_PAIR = ["data/dna/AbHV_ORF111.txt", "data/dna/mutated_AbHV_ORF111.txt"]
+# K1's checkpoint variants against their plain versions: rps, slots,
+# ckpt_every, n.
+CKPT_GEOMETRIES = ((16, 4096, 8192, 9000), (4, 1024, 2048, 5000),
+                   (1, 128, 256, 3000))
+# The checkpoint engine at forced small geometries (argv of
+# parse_arguments, checkpointed_align's geometry): many tiles a path.
+CKPT_MAIN_PATH = [
+    ([*NC_034972], dict(rps=4, slots=1024, ckpt_cols=2048)),
+    (["-p", "data/protein/P33450.fasta", "data/protein/mutated_P33450.fasta"],
+     dict(rps=1, slots=128, ckpt_cols=256)),
+]
 
 MODES = {"global": {}, "local": {"local": True}, "semi": {"semi": True}}
 ALGO = {"global": 0, "local": 1, "semi": 2}
@@ -237,6 +279,9 @@ def max_abs_err(got, want):
     err = 0
     chunk = 1 << 26
     for a, b in zip(got, want):
+        if a is None or b is None:  # an output neither computed
+            check(a is None and b is None, "an output only one computed")
+            continue
         check(a.shape == b.shape, f"shape {tuple(a.shape)} != "
                                   f"{tuple(b.shape)}")
         a, b = a.reshape(-1), b.reshape(-1)
@@ -269,10 +314,10 @@ def ptxas_summary(path):
     )
     lines = []
     for name, stack, st, ld, regs in pattern.findall(text):
-        args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", name)
+        args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name)
         if args:
             label = (f"<rps {args[1]}, slots/thread {args[2]}, "
-                     f"track {args[3]}>")
+                     f"track {args[3]}, dirs {args[4]}>")
         elif args := re.search(r"ILi(\d)ELb(\d)E", name):
             label = f"<mode {args[1]}, dirs {args[2]}>"
         elif args := re.search(r"ILi(\d)EE", name):
@@ -296,7 +341,7 @@ def strip_case(rng, n, m, k, rps, slots, local, semi, device):
     pat_pad = np.zeros(rps * slots, dtype=np.int32)
     pat_pad[:m] = pattern
     gap = 5 if k == 4 else 10
-    bottom = direct.top_row(steps, gap, local or semi, "cpu").numpy()
+    bottom = layout.top_row(steps, gap, local or semi, "cpu").numpy()
     return gap, layout.from_reference_arrays(
         layout.text_steps(text, steps), bottom,
         layout.pattern_slots(pat_pad, rps, slots), score_matrix(k), k,
@@ -305,19 +350,19 @@ def strip_case(rng, n, m, k, rps, slots, local, semi, device):
 
 
 def walk_start(out, n, m, rps, slots, local, semi):
-    _, _, rowmax, argj, snap = out
+    _, _, rowmax, argj, snap, _ = out
     _, bi, bj = direct.best_cell(rowmax, argj, snap, rps, slots, n, m,
                                  local, semi)
     return bi, bj
 
 
-def compare_walk(words, rps, i0, j0, local, max_moves):
+def compare_walk(words, rps, i0, j0, local, max_moves, row_lo=0, col_lo=0):
     """K2 and its plain version from (i0, j0): (max_abs_err, result)."""
-    mv, res = walk.walk_skewed_window(words, rps, 0, 0, i0, j0, local,
-                                      max_moves)
+    mv, res = walk.walk_skewed_window(words, rps, row_lo, col_lo, i0, j0,
+                                      local, max_moves)
     torch.cuda.synchronize()
-    mv_p, res_p = walk.walk_skewed_window_plain(words, rps, 0, 0, i0, j0,
-                                                local, max_moves)
+    mv_p, res_p = walk.walk_skewed_window_plain(words, rps, row_lo, col_lo,
+                                                i0, j0, local, max_moves)
     used = -(-int(res_p[0]) // 16)
     err = max_abs_err([res, mv[:used]], [res_p, mv_p[:used]])
     return err, [int(x) for x in res.cpu()]
@@ -465,16 +510,20 @@ def phase_full_width(oracle_score):
     # Each kernel at this shape: CUDA-event time, then the plain version.
     ts, pat, sm_dev = direct.strip_inputs(text, pattern, sm, k, rps, slots,
                                           "cuda")
-    bottom = direct.top_row(ts.numel(), gap, False, "cuda")
+    bottom = layout.top_row(ts.numel(), gap, False, "cuda")
     args = (ts, bottom, pat, sm_dev, gap, n, m, 0, k)
     kw = dict(local=False, rps=rps, slots=slots, semi=False)
-    k1_out, k1_ms = cuda_ms(wavefront.wavefront_strip, *args, **kw)
+    # Each kernel's launch alone: outputs allocated before the events.
+    launch, k1_out = wavefront.kernel_launch(*args, False, rps, 0, slots,
+                                             False, None)
+    _, k1_ms = cuda_ms(launch)
     max_moves = -(-(n + m + 1) // 16) * 16
-    (mv, res), k2_ms = cuda_ms(walk.walk_skewed_window, k1_out[0], rps, 0,
-                               0, m, n, False, max_moves)
+    launch, (mv, res) = walk.kernel_launch(k1_out[0], rps, 0, 0, m, n, False,
+                                           max_moves)
+    _, k2_ms = cuda_ms(launch)
     moves = int(res[0])
     log(f"full width: K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms "
-        f"({moves} moves), CUDA events")
+        f"({moves} moves), each launch alone, CUDA events")
 
     t1 = time.time()
     k1_plain = wavefront.wavefront_strip_plain(*args, **kw)
@@ -524,14 +573,20 @@ def reset_batch_launches():
     batch_traceback.batch_walk.launches = 0
 
 
+BATCH_PLAIN = ((batch_fill, "batch_score_plain"),
+               (batch_fill, "batch_fill_dirs_plain"),
+               (batch_traceback, "batch_walk_plain"))
+PAIR_PLAIN = ((wavefront, "wavefront_strip_plain"),
+              (walk, "walk_skewed_window_plain"))
+
+
 @contextlib.contextmanager
-def plain_versions_forbidden():
-    """Within the block a call of a batch kernel's plain version raises:
-    the wrappers look them up by name in their modules."""
+def plain_versions_forbidden(plain=BATCH_PLAIN):
+    """Within the block a call of one of the kernels' plain versions
+    named in ``plain`` raises: the wrappers look them up by name in their
+    modules."""
     saved = []
-    for module, name in ((batch_fill, "batch_score_plain"),
-                         (batch_fill, "batch_fill_dirs_plain"),
-                         (batch_traceback, "batch_walk_plain")):
+    for module, name in plain:
         def refuse(*args, _name=name, **kwargs):
             raise AssertionError(f"{_name} ran on the main path")
         saved.append((module, name, getattr(module, name)))
@@ -637,10 +692,15 @@ def phase_batch_kernels(device="cuda", b=512, n=300, m=208):
     return errs
 
 
-def read_pair(argv):
+def read_request(argv):
     request = Request()
     check(cli.parse_arguments(["alignSequence", *argv], request) == 0,
           f"cannot read {argv}")
+    return request
+
+
+def read_pair(argv):
+    request = read_request(argv)
     return (np.asarray(request.text, dtype=np.int32),
             np.asarray(request.pattern, dtype=np.int32))
 
@@ -877,6 +937,320 @@ def phase_align_width(data, oracle_aligned, device="cuda"):
     }
 
 
+def strip_bytes(steps, rps, slots, k, num_ckpts=0, left=False,
+                words=False):
+    """Bytes a K1 launch must move: its inputs read once (text, top row,
+    pattern, matrix, left column), its outputs written once (bottom row,
+    trackers, snap, checkpoints, 2-bit words)."""
+    rows = rps * slots
+    inputs = 4 * (2 * steps + rows + k * k + (rows + slots if left else 0))
+    outputs = 4 * (steps + 2 * rows + slots + num_ckpts * rows)
+    return inputs + outputs + (steps * rows // 4 if words else 0)
+
+
+def phase_ckpt_kernels(device="cuda"):
+    """Phase 10: K1's checkpoint-engine variants against their plain
+    versions: score-only with checkpoints, and with words from a left
+    column on tiles of a real phase-1 fill (K2 walking each of them)."""
+    rng = np.random.default_rng(2027)
+    k1_err = k2_err = 0
+    for rps, slots, every, n in CKPT_GEOMETRIES:
+        for k in (4, 23):
+            for mode in MODES:
+                local, semi = mode == "local", mode == "semi"
+                m = rps * slots - 3
+                gap, args = strip_case(rng, n, m, k, rps, slots, local,
+                                       semi, device)
+                kw = dict(local=local, with_dirs=False, rps=rps,
+                          ckpt_every=every, slots=slots, semi=semi)
+                t0 = time.time()
+                out = wavefront.wavefront_strip(*args, gap, n, m, 0, k, **kw)
+                torch.cuda.synchronize()
+                t1 = time.time()
+                plain = wavefront.wavefront_strip_plain(*args, gap, n, m, 0,
+                                                        k, **kw)
+                torch.cuda.synchronize()
+                # Every output, each checkpoint entry included (0 where a
+                # slot does not reach the column within the steps).
+                err = max_abs_err(out, plain)
+                check(err == 0 and out[0] is None and out[5] is not None,
+                      f"K1 score-only {mode} k={k} rps={rps} slots={slots}:"
+                      f" max_abs_err {err}")
+                k1_err = max(k1_err, err)
+                log(f"K1 score-only, checkpoints every {every}, {mode:6s} "
+                    f"k={k:2d} rps={rps:2d} slots={slots}: exact "
+                    f"({out[5].shape[0] // rps} columns), kernel "
+                    f"{t1 - t0:.3f} s, plain {time.time() - t1:.2f} s")
+    # Tiles of a phase-1 fill at rps 4 x 1024 slots, 2048 columns: 2
+    # strips x 3 column tiles.
+    n, m, cols = 5000, 6000, 2048
+    for k in (4, 23):
+        for mode, kw in MODES.items():
+            text = rng.integers(0, k, n).astype(np.int32)
+            pattern = rng.integers(0, k, m).astype(np.int32)
+            sm = score_matrix(k)
+            gap = 5 if k == 4 else 10
+            ck = checkpoint.checkpointed_fill(
+                text, pattern, sm, k, gap, ckpt_cols=cols, rps=4, slots=1024,
+                device=device, **kw)
+            tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
+            for b, c, where in ((0, 1, "row 0"), (1, 0, "column 0"),
+                                (1, 1, "interior")):
+                args, tkw = tiles.strip_args(b, c)
+                t0 = time.time()
+                out = wavefront.wavefront_strip(*args, **tkw)
+                torch.cuda.synchronize()
+                t1 = time.time()
+                plain = wavefront.wavefront_strip_plain(*args, **tkw)
+                torch.cuda.synchronize()
+                err = max_abs_err(out, plain)
+                check(err == 0, f"K1 tile {where} {mode} k={k}: max_abs_err "
+                                f"{err}")
+                k1_err = max(k1_err, err)
+                # K2 from the tile's last real cell.
+                i0 = min((b + 1) * tiles.rows, m)
+                j0 = min((c + 1) * cols, n)
+                werr, res = compare_walk(out[0], 4, i0, j0, mode == "local",
+                                         tiles.rows + cols + 1,
+                                         b * tiles.rows, c * cols)
+                check(werr == 0, f"K2 tile {where} {mode} k={k}: "
+                                 f"max_abs_err {werr}")
+                k2_err = max(k2_err, werr)
+                log(f"K1 tile ({b}, {c}) in {where:8s} {mode:6s} k={k:2d}, "
+                    f"left column and words: exact, kernel {t1 - t0:.3f} "
+                    f"s, plain {time.time() - t1:.2f} s; K2 from ({i0}, "
+                    f"{j0}): exact, {res[0]} moves")
+    return k1_err, k2_err
+
+
+def ckpt_oracle(cases):
+    return {key: bindings.oracle_align(ALGO[key[1]], *case[:5])
+            for key, case in cases.items()}
+
+
+def ckpt_cases():
+    """Phase 11's alignments: (argv index, mode) -> (text, pattern,
+    matrix, k, gap, geometry)."""
+    cases = {}
+    for idx, (argv, geom) in enumerate(CKPT_MAIN_PATH):
+        request = read_request(argv)
+        k = request.alphabet_size
+        for mode in MODES:
+            cases[idx, mode] = (
+                np.asarray(request.text, dtype=np.int32),
+                np.asarray(request.pattern, dtype=np.int32),
+                layout.pack_score_matrix(request.score_matrix, k), k,
+                request.gap_penalty, geom)
+    return cases
+
+
+def phase_ckpt_main_path(cases, oracle, device="cuda"):
+    """Phase 11: checkpointed_align at forced small geometries against
+    oracle_align; returns the launches of the phase."""
+    expected = oracle()
+    reset_launches()
+    with plain_versions_forbidden(PAIR_PLAIN):
+        for key, (text, pattern, sm, k, gap, geom) in cases.items():
+            mode = key[1]
+            before = launches()
+            t0 = time.time()
+            score, bi, bj, at, ap, st, sp = checkpoint.checkpointed_align(
+                text, pattern, sm, k, gap, device=device, **geom,
+                **MODES[mode])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            delta = {kid: v - before[kid] for kid, v in launches().items()}
+            wat, wap, wst, wsp, wscore = expected[key]
+            check(score == wscore and (st, sp) == (wst, wsp)
+                  and np.array_equal(at, wat) and np.array_equal(ap, wap),
+                  f"checkpoint engine {CKPT_MAIN_PATH[key[0]][0]} {mode}: "
+                  f"differs from oracle_align")
+            strips = -(-len(pattern) // (geom["rps"] * geom["slots"]))
+            check(delta["K2"] >= 2 and delta["K1"] == strips + delta["K2"],
+                  f"checkpoint engine {mode}: launches {delta}, {strips} "
+                  f"strips")
+            log(f"checkpoint engine {len(pattern)} x {len(text)} {mode:6s} "
+                f"k={k:2d} {geom}: {wall:.2f} s, Score {score}, {strips} "
+                f"strips, {delta['K2']} path tiles, launches {delta}; "
+                f"byte-identical to oracle_align")
+    return launches()
+
+
+def phase_long_pair(oracle_score, device="cuda"):
+    """Phase 12: the checkpoint engine at full width through -g, then a
+    phase-1 strip and a path tile of its fill timed and held against
+    their plain versions."""
+    request = read_request(["-g", *LONG_PAIR])
+    text = np.asarray(request.text, dtype=np.int32)
+    pattern = np.asarray(request.pattern, dtype=np.int32)
+    n, m, k, gap = len(text), len(pattern), request.alphabet_size, \
+        request.gap_penalty
+    sm = layout.pack_score_matrix(request.score_matrix, k)
+    rps, slots = checkpoint._pick_geometry(m, None, None)
+    rows, cols = rps * slots, checkpoint.DEFAULT_CKPT_COLS
+    strips = -(-m // rows)
+    check(not direct.fits_direct(n, m), f"{m} x {n} fits the direct route")
+
+    # The two phases' times, and the fill for the kernel timings below.
+    seen = {}
+    real_fill = checkpoint.checkpointed_fill
+    real_traceback = checkpoint.checkpointed_traceback
+
+    def fill(*args, **kwargs):
+        t0 = time.time()
+        seen["ck"] = real_fill(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["phase1_s"] = time.time() - t0
+        return seen["ck"]
+
+    def traceback(*args, **kwargs):
+        t0 = time.time()
+        out = real_traceback(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["phase2_s"] = time.time() - t0
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    checkpoint.checkpointed_fill = fill
+    checkpoint.checkpointed_traceback = traceback
+    try:
+        with plain_versions_forbidden(PAIR_PLAIN):
+            t0 = time.time()
+            rc, out = run_cli(["-g", *LONG_PAIR])
+            wall = time.time() - t0
+    finally:
+        checkpoint.checkpointed_fill = real_fill
+        checkpoint.checkpointed_traceback = real_traceback
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"-g on the long pair: rc {rc}")
+    tiles_crossed = counts["K2"]
+    check(tiles_crossed >= 1 and counts["K1"] == strips + tiles_crossed,
+          f"long pair: launches {counts}, {strips} strips")
+    score = int(out.rstrip("\n").rsplit("\t", 1)[-1])
+    aligned_text, aligned_pattern = parse_alignment(out)
+    rescored = rescore(aligned_text, aligned_pattern, request.alphabet, sm,
+                       gap)
+    expected = oracle_score()
+    check(score == expected == rescored,
+          f"long pair: -g Score {score}, oracle {expected}, rescored "
+          f"{rescored}")
+    log(f"long pair {m} x {n} (rps {rps}, slots {slots}, {cols} columns a "
+        f"tile): -g wall {wall:.2f} s, phase 1 {seen['phase1_s']:.2f} s "
+        f"({strips} strips), phase 2 {seen['phase2_s']:.2f} s "
+        f"({tiles_crossed} path tiles), Score {score} == oracle score-only "
+        f"fill == rescored alignment of {len(aligned_text)} columns; "
+        f"launches {counts}; max_memory_allocated {peak} B")
+
+    # One phase-1 strip (strip 1, below the bottom row of strip 0): its
+    # launch alone, then its plain version.
+    ck = seen.pop("ck")
+    steps = layout.steps_padded(n, slots)
+    pat_pad = np.zeros(strips * rows, dtype=np.int32)
+    pat_pad[:m] = pattern
+    args = (torch.as_tensor(layout.text_steps(text, steps)).to(device),
+            ck.boundaries[0][:steps].reshape(-1, layout.STEPS),
+            torch.as_tensor(layout.pattern_slots(pat_pad[rows:2 * rows], rps,
+                                                 slots)).to(device),
+            torch.as_tensor(sm).to(device), gap, n, m, rows, k)
+    kw = dict(local=False, with_dirs=False, rps=rps, ckpt_every=cols,
+              slots=slots, semi=False)
+    launch, strip_out = wavefront.kernel_launch(*args, False, rps, cols,
+                                                slots, False, None)
+    _, ckpt_ms = cuda_ms_best(launch, reps=2)
+    check(torch.equal(strip_out[5].reshape(-1, rps, slots).transpose(1, 2)
+                      .reshape(-1, rows), ck.colvals[1])
+          and torch.equal(strip_out[1].reshape(-1)[slots - 1:],
+                          ck.boundaries[1][:steps - slots + 1]),
+          "long pair: strip 1 differs from the run's own fill")
+    plain, ckpt_plain_ms = timed(wavefront.wavefront_strip_plain, *args, **kw)
+    ckpt_err = max_abs_err(strip_out, plain)
+    check(ckpt_err == 0, f"long pair: K1 score-only max_abs_err {ckpt_err}")
+    del plain
+    log(f"long pair, one phase-1 strip ({rows} x {steps} steps): K1 "
+        f"score-only with checkpoints {ckpt_ms:.3f} ms (its launch alone, "
+        f"CUDA events, best of 2), plain {ckpt_plain_ms:.1f} ms; exact")
+
+    # One full-size interior tile of the path's band (strip 1, column
+    # tile 2), re-filled from the run's checkpoints: K1 with the left
+    # column and words, then K2 from the middle of the tile.
+    tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
+    b, c = 1, 2
+    targs, tkw = tiles.strip_args(b, c)
+    launch, tile_out = wavefront.kernel_launch(*targs, False, rps, 0, slots,
+                                               False, tkw["left_in"])
+    _, tile_ms = cuda_ms_best(launch, reps=2)
+    i0, j0 = b * rows + rows // 2, c * cols + cols // 2
+    max_moves = rows + cols + 1
+    launch, (mv, res) = walk.kernel_launch(tile_out[0], rps, b * rows,
+                                           c * cols, i0, j0, False, max_moves)
+    _, walk_ms = cuda_ms(launch)
+    plain, tile_plain_ms = timed(wavefront.wavefront_strip_plain, *targs,
+                                 **tkw)
+    tile_err = max_abs_err(tile_out, plain)
+    check(tile_err == 0, f"long pair: K1 tile max_abs_err {tile_err}")
+    del plain
+    werr, wres = compare_walk(tile_out[0], rps, i0, j0, False, max_moves,
+                              b * rows, c * cols)
+    check(werr == 0 and [int(x) for x in res.cpu()] == wres,
+          f"long pair: K2 in the tile max_abs_err {werr}")
+    log(f"long pair, one path tile ({rows} x {tiles.tile_steps} steps, tile "
+        f"({b}, {c})): K1 with the left column and words {tile_ms:.3f} ms, "
+        f"K2 from ({i0}, {j0}) {walk_ms:.3f} ms ({wres[0]} moves), each "
+        f"launch alone, CUDA events; plain K1 {tile_plain_ms:.1f} ms; both "
+        f"exact")
+
+    # The host's share of a path tile: Tiles.walk from the same cell (the
+    # tile's inputs, both launches, the read-back of K2's result and
+    # moves, the unpacking) on the host's clock, less the two launches'
+    # CUDA-event times; then the read-back and unpacking alone.
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moves, _, _, _ = tiles.walk(i0, j0)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(len(moves) == wres[0], f"long pair: Tiles.walk made {len(moves)} "
+          f"moves, K2 alone {wres[0]}")
+    tile_wall_ms = min(walls)
+    host_ms = tile_wall_ms - tile_ms - walk_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count = res.tolist()[0]
+    walk.unpack_moves(mv[:-(-count // 16)].cpu().numpy(), count)
+    readback_ms = (time.perf_counter() - t0) * 1e3
+    phase2_rest_ms = seen["phase2_s"] * 1e3 - tiles_crossed * tile_ms
+    log(f"long pair, host share of a path tile: Tiles.walk {tile_wall_ms:.3f} "
+        f"ms (host clock, best of 2) - K1 {tile_ms:.3f} ms - K2 "
+        f"{walk_ms:.3f} ms = {host_ms:.3f} ms; K2's result and "
+        f"{count} moves read back and unpacked in {readback_ms:.3f} ms; "
+        f"phase 2 less {tiles_crossed} x K1 tile = {phase2_rest_ms:.1f} ms "
+        f"(its K2 walks, Tiles set-up, host work)")
+
+    real_cells = rows * n
+    tile_cells = min(rows, m - b * rows) * min(cols, n - c * cols)
+    return {
+        "wall_s": wall, "phase1_s": seen["phase1_s"],
+        "phase2_s": seen["phase2_s"], "strips": strips,
+        "tiles": tiles_crossed, "peak_bytes": peak, "counts": counts,
+        "tile_host_ms": host_ms, "readback_ms": readback_ms,
+        "phase2_rest_ms": phase2_rest_ms,
+        "K1-ckpt": bound(strip_bytes(steps, rps, slots, k,
+                                     ck.colvals[1].shape[0]),
+                         real_cells * K1_SCORE_OPS_PER_CELL) | {
+            "ms": ckpt_ms, "plain_ms": ckpt_plain_ms, "err": ckpt_err,
+            "shape": f"one strip of {rows} x {steps} steps of {m} x {n}, "
+                     f"checkpoints every {cols}, global"},
+        "K1-tile": bound(strip_bytes(tiles.tile_steps, rps, slots, k,
+                                     left=True, words=True),
+                         tile_cells * K1_OPS_PER_CELL) | {
+            "ms": tile_ms, "plain_ms": tile_plain_ms, "err": tile_err,
+            "shape": f"one tile of {rows} x {tiles.tile_steps} steps of "
+                     f"{m} x {n}, left column and words, global"},
+    }
+
+
 def bound(nbytes, ops):
     """The least time of the work on an H100: bytes over the memory rate
     or int32 operations over the int32 rate, whichever is larger."""
@@ -904,6 +1278,16 @@ def run(procs):
     oracle_lib = in_thread(ensure_built)
     kernels = _build.build_all()
     oracle_lib()
+    # The longest host work first: the oracle's score-only fill of the
+    # long pair for phase 12 (ctypes releases the GIL).
+    long_pair = read_request(LONG_PAIR)
+    long_score = in_thread(
+        lambda: bindings.oracle_fill_affine(
+            0, long_pair.text, long_pair.pattern,
+            layout.pack_score_matrix(long_pair.score_matrix,
+                                     long_pair.alphabet_size),
+            long_pair.alphabet_size, long_pair.gap_penalty,
+            long_pair.gap_penalty)[0])
     log(f"build: {time.time() - t_start:.1f} s "
         f"({', '.join(sorted(kernels))} and the native oracle)")
     for path in kernels.values():
@@ -936,6 +1320,8 @@ def run(procs):
     oracle_aligned = in_thread(lambda: [
         bindings.oracle_align(1, align_data[0][i], align_data[1][i],
                               DNA_5_4, 4, 5) for i in align_data[2]])
+    ck_cases = ckpt_cases()
+    ck_expected = in_thread(ckpt_oracle, ck_cases)
 
     t0 = time.time()
     k1_err, k2_err = phase_kernels()
@@ -970,26 +1356,53 @@ def run(procs):
     t0 = time.time()
     aw = phase_align_width(align_data, oracle_aligned)
     log(f"phase 9 (full width, alignments): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ck_k1_err, ck_k2_err = phase_ckpt_kernels()
+    log(f"phase 10 (K1's checkpoint variants against their plain "
+        f"versions): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ck_counts = phase_ckpt_main_path(ck_cases, ck_expected)
+    log(f"phase 11 (checkpoint engine, small tiles): "
+        f"{time.time() - t0:.1f} s, launches {json.dumps(ck_counts)}")
+    t0 = time.time()
+    lp = phase_long_pair(long_score)
+    log(f"phase 12 (checkpoint engine, full width): "
+        f"{time.time() - t0:.1f} s")
 
+    # K1 with words from column 0 (phases 4-5); K2 wherever it walks
+    # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint
+    # variants: a phase-1 strip per strip, a tile per path tile (11-12).
+    tiles = ck_counts["K2"] + lp["counts"]["K2"]
+    pair_launches = {
+        "K1": (by_route["wavefront"]["K1"] + by_route["direct"]["K1"]
+               + fw["counts"]["K1"]),
+        "K2": (by_route["wavefront"]["K2"] + by_route["direct"]["K2"]
+               + fw["counts"]["K2"] + tiles),
+        "K1-ckpt": ck_counts["K1"] + lp["counts"]["K1"] - tiles,
+        "K1-tile": tiles,
+    }
     summary = []
-    for name, source, replaces in (
-        ("K1 wavefront_strip", "seqalign_torch/csrc/wavefront.cu",
-         "seqalign_tpu/ops/wavefront.py:71"),
-        ("K2 walk_skewed_window", "seqalign_torch/csrc/walk.cu",
-         "seqalign_tpu/ops/pallas_walk.py:37"),
+    for name, kid, replaces, row, err in (
+        ("K1 wavefront_strip", "K1", "seqalign_tpu/ops/wavefront.py:71",
+         fw["K1"] | {"shape": fw["shape"]}, k1_err),
+        ("K2 walk_skewed_window", "K2", "seqalign_tpu/ops/pallas_walk.py:37",
+         fw["K2"] | {"shape": fw["shape"]}, max(k2_err, ck_k2_err)),
+        ("K1-ckpt wavefront_strip (score-only, column checkpoints)",
+         "K1-ckpt", "seqalign_tpu/ops/wavefront.py:71", lp["K1-ckpt"],
+         ck_k1_err),
+        ("K1-tile wavefront_strip (left column, words)", "K1-tile",
+         "seqalign_tpu/ops/wavefront.py:71", lp["K1-tile"], ck_k1_err),
     ):
-        kid = name[:2]
-        err = max(fw[kid]["err"], k1_err if kid == "K1" else k2_err)
+        err = max(row["err"], err)
+        source = ("seqalign_torch/csrc/walk.cu" if kid == "K2"
+                  else "seqalign_torch/csrc/wavefront.cu")
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": (by_route["wavefront"][kid] + by_route["direct"][kid]
-                         + fw["counts"][kid]),
+            "replaces": replaces, "launches": pair_launches[kid],
             "max_abs_err": err, "exact": err == 0,
-            "ms": fw[kid]["ms"], "plain_ms": fw[kid]["plain_ms"],
-            "bound_ms": fw[kid]["bound_ms"],
-            "bound_by": fw[kid]["bound_by"], "library_ms": None,
-            "shape": fw["shape"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"],
         })
     for name, source, replaces, row, full_counts in (
         ("K3-score batch_score", "seqalign_torch/csrc/interpair.cu",
@@ -1017,6 +1430,10 @@ def run(procs):
         "score_gcups_kernel": sw["gcups_kernel"],
         "align_wall_ms": aw["wall_ms"], "align_pairs_per_s": aw["pairs_per_s"],
         "align_peak_bytes": aw["peak_bytes"]}}))
+    log(json.dumps({"long_pair": {
+        key: lp[key] for key in ("wall_s", "phase1_s", "phase2_s", "strips",
+                                 "tiles", "peak_bytes", "tile_host_ms",
+                                 "readback_ms", "phase2_rest_ms")}}))
     log(f"total: {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -72,8 +72,8 @@ def align_gpu(request: Request, response: Response,
     failure, print the reference's MEM_ERROR (on a no-GPU host the
     reference's cudaMallocs fail and it prints MEM_ERROR,
     alignSequenceGPU.cu:502-546).  What the engine cannot run yet
-    (affine gaps, pairs beyond one strip) and |score| > 127 matrices
-    print ``error: ...``.  All exit 1.
+    (affine gaps) and |score| > 127 matrices print ``error: ...``.  All
+    exit 1.
     """
     import torch
 

@@ -5,23 +5,16 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .. import config
 from ..native import bindings
-from ..ops import direct, layout, wavefront
+from ..ops import checkpoint, direct, layout, wavefront
 
 AFFINE_NOT_PORTED = (
     "affine gaps (--gap-extend) need the affine engine, which the GPU "
     "package does not have yet; use -c"
 )
-
-
-def beyond_direct_message(n: int, m: int) -> str:
-    return (
-        f"a {m} x {n} pair exceeds the direct route (one strip of "
-        f"{16 * direct.DEFAULT_CKPT_SLOTS} rows); the checkpoint engine "
-        f"it needs is not in the GPU package yet; use -c"
-    )
 
 
 @dataclasses.dataclass
@@ -36,16 +29,15 @@ class AlignmentResult:
 
 
 class PairAligner:
-    """Base: one sequence pair through the wavefront or the direct route,
-    linear gaps only."""
+    """Base: one sequence pair through the wavefront route, the direct
+    route or the checkpoint engine, linear gaps only."""
 
     local: bool = False
 
     def align(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
               gap_extend=None, device=None):
         """Align on ``device`` (default ``config.device()``).  Raises
-        ValueError for what this package cannot run yet: affine gaps, and
-        pairs beyond the direct route."""
+        ValueError for what this package cannot run yet: affine gaps."""
         if gap_extend is not None:
             raise ValueError(AFFINE_NOT_PORTED)
         return self._align_wavefront(
@@ -57,7 +49,7 @@ class PairAligner:
                          gap_penalty, device):
         """Small pairs: multi-strip fill on the device, words to the host,
         native skewed traceback.  Pairs whose words exceed the host
-        budget take the direct route."""
+        budget take ``_align_long``."""
         text = np.asarray(text, dtype=np.int32)
         pattern = np.asarray(pattern, dtype=np.int32)
         sm = layout.pack_score_matrix(score_matrix, alphabet_size)
@@ -71,7 +63,7 @@ class PairAligner:
             * wavefront.SLOTS * 4
         )
         if words_bytes > config.host_dirs_budget():
-            return self._align_direct(
+            return self._align_long(
                 text, pattern, sm, alphabet_size, gap_penalty, device
             )
         score, bi, bj, words, steps_pad = wavefront.wavefront_fill(
@@ -88,14 +80,41 @@ class PairAligner:
         return AlignmentResult(aligned_text, aligned_pattern, start_t,
                                start_p, score)
 
+    def _align_long(self, text, pattern, score_matrix, alphabet_size,
+                    gap_penalty, device, semi: bool = False):
+        """The direct route when the pair fits it, else the checkpoint
+        engine.  A direct run that runs out of device memory (the budget
+        assumes a card of its own) is retried on the checkpoint engine, on
+        the same device; any other error propagates."""
+        if direct.fits_direct(len(text), len(pattern)):
+            try:
+                return self._align_direct(text, pattern, score_matrix,
+                                          alphabet_size, gap_penalty, device,
+                                          semi=semi)
+            except torch.cuda.OutOfMemoryError:
+                pass  # retried below, once the failed run's tensors are freed
+        return self._align_checkpoint(text, pattern, score_matrix,
+                                      alphabet_size, gap_penalty, device,
+                                      semi=semi)
+
     def _align_direct(self, text, pattern, score_matrix, alphabet_size,
                       gap_penalty, device, semi: bool = False):
         """Fill, best-cell merge and walk on the device (ops/direct.py)."""
-        n, m = len(text), len(pattern)
-        if not direct.fits_direct(n, m):
-            raise ValueError(beyond_direct_message(n, m))
         score, _, _, aligned_text, aligned_pattern, start_t, start_p = (
             direct.direct_align(
+                text, pattern, score_matrix, alphabet_size, gap_penalty,
+                local=self.local, semi=semi, device=device,
+            )
+        )
+        return AlignmentResult(aligned_text, aligned_pattern, start_t,
+                               start_p, score)
+
+    def _align_checkpoint(self, text, pattern, score_matrix, alphabet_size,
+                          gap_penalty, device, semi: bool = False):
+        """Boundary-checkpoint fill and path-tile traceback on the device
+        (ops/checkpoint.py), for pairs of any length."""
+        score, _, _, aligned_text, aligned_pattern, start_t, start_p = (
+            checkpoint.checkpointed_align(
                 text, pattern, score_matrix, alphabet_size, gap_penalty,
                 local=self.local, semi=semi, device=device,
             )

@@ -1,7 +1,8 @@
 """Semi-global ("fit") alignment model — extension beyond the reference
 (its SEMI_GLOBAL enum value is unreachable from its CLI): the pattern
 aligns globally while text end-gaps are free.  The native oracle defines
-the contract; the GPU engine always takes the direct route."""
+the contract; the GPU engine takes the direct route when the pair fits
+it, else the checkpoint engine."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ class SemiGlobal(PairAligner):
               gap_extend=None, device=None):
         if gap_extend is not None:
             raise ValueError(AFFINE_NOT_PORTED)
-        return self._align_direct(
+        return self._align_long(
             np.asarray(text, dtype=np.int32),
             np.asarray(pattern, dtype=np.int32),
             score_matrix, alphabet_size,

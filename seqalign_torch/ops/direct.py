@@ -5,8 +5,8 @@ cell is merged on the device (row-major first occurrence,
 alignSequenceCPU.cpp:191-192), and K2 walks the path there — only the
 score, the best cell and the 2-bit packed moves come back to the host,
 which replays them through the native emitter.  Pairs whose pattern
-exceeds one strip need the checkpoint engine, which this package does
-not have yet.
+exceeds one strip, or whose words exceed the device budget, take the
+checkpoint engine (``ops/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -18,16 +18,10 @@ import torch
 
 from ..native import bindings
 from . import layout, wavefront
+from .checkpoint import _pick_geometry
 from .walk import unpack_moves, walk_skewed_window
 
 _LEFT, _TOP = 0, 2
-
-# Strip geometry (the JAX package's checkpoint-engine defaults): 4096
-# slots, rows per slot by pattern length.
-DEFAULT_CKPT_RPS = 4
-DEFAULT_CKPT_SLOTS = 4096
-DEEP_CKPT_RPS = 16
-DEEP_CKPT_MIN_ROWS = 36864
 
 # Cap of the walker's move list.
 MAX_DIRECT_MOVES = 4 << 20
@@ -35,14 +29,6 @@ MAX_DIRECT_MOVES = 4 << 20
 MAX_DIRECT_DIRS_BYTES = int(
     os.environ.get("SEQALIGN_MAX_DIRECT_DIRS_BYTES", 10 << 30)
 )
-
-
-def _pick_geometry(m: int, rps, slots):
-    if rps is not None or slots is not None:
-        return rps or DEFAULT_CKPT_RPS, slots or DEFAULT_CKPT_SLOTS
-    if m >= DEEP_CKPT_MIN_ROWS:
-        return DEEP_CKPT_RPS, DEFAULT_CKPT_SLOTS
-    return DEFAULT_CKPT_RPS, DEFAULT_CKPT_SLOTS
 
 
 def _direct_geometry(m: int):
@@ -61,17 +47,6 @@ def fits_direct(n: int, m: int) -> bool:
         return False
     dirs_bytes = (layout.steps_padded(n, slots) // 16) * rps * slots * 4
     return dirs_bytes <= MAX_DIRECT_DIRS_BYTES
-
-
-def top_row(steps: int, gap: int, zero: bool, device) -> torch.Tensor:
-    """(steps/STEPS, STEPS) int32 top boundary row H[0, t+1] of strip 0:
-    zeros (local, semi-global) or -gap*(t+1) (global)."""
-    if zero:
-        row = torch.zeros(steps, dtype=torch.int32, device=device)
-    else:
-        row = (-gap * (torch.arange(steps, device=device) + 1)).to(
-            torch.int32)
-    return row.reshape(-1, layout.STEPS)
 
 
 def best_cell(rowmax, argj, snap, rps: int, slots: int, n: int, m: int,
@@ -111,9 +86,9 @@ def direct_fill_walk(text_steps, pattern_slots, score_matrix, gap, n, m,
     Returns (score, best_i, best_j, moves, result): Python ints, then
     the walker's packed moves and (count, i, j, state, done) tensors.
     """
-    bottom = top_row(text_steps.numel(), gap, local or semi,
-                     text_steps.device)
-    dirs, _, rowmax, argj, snap = wavefront.wavefront_strip(
+    bottom = layout.top_row(text_steps.numel(), gap, local or semi,
+                            text_steps.device)
+    dirs, _, rowmax, argj, snap, _ = wavefront.wavefront_strip(
         text_steps, bottom, pattern_slots, score_matrix, gap, n, m, 0,
         k_alpha=k_alpha, local=local, rps=rps, slots=slots, semi=semi,
     )

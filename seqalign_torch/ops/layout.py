@@ -59,6 +59,17 @@ def text_steps(text: np.ndarray, steps_pad: int) -> np.ndarray:
     return out.reshape(-1, STEPS)
 
 
+def top_row(steps: int, gap: int, zero: bool, device) -> torch.Tensor:
+    """(steps/STEPS, STEPS) int32 top boundary row H[0, t+1] of strip 0:
+    zeros (local, semi-global) or -gap*(t+1) (global)."""
+    if zero:
+        row = torch.zeros(steps, dtype=torch.int32, device=device)
+    else:
+        row = (-gap * (torch.arange(steps, device=device) + 1)).to(
+            torch.int32)
+    return row.reshape(-1, STEPS)
+
+
 def pattern_slots(pattern_rows: np.ndarray, rps: int,
                   slots: int) -> np.ndarray:
     """(rps, slots/128, 128) int32 from the rps*slots pattern letters of

@@ -62,23 +62,38 @@ def walk_skewed_window(words, rps: int, row_lo: int, col_lo: int, i0: int,
     if device.type != "cuda":
         raise ValueError(f"walk_skewed_window runs on cuda or cpu, "
                          f"not {device}")
-    move_words = -(-max_moves // 16)
-    moves = torch.empty(max(move_words, 1), dtype=torch.int32, device=device)
-    result = torch.empty(5, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel()(
-            words.data_ptr(), rps, words.shape[1] * 128, int(row_lo),
-            int(col_lo), int(i0), int(j0), int(local), moves.data_ptr(),
-            move_words, result.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"walk kernel launch failed: cudaError_t {rc}")
+    launch, out = kernel_launch(words, rps, row_lo, col_lo, i0, j0, local,
+                                max_moves)
+    launch()
     walk_skewed_window.launches += 1
-    return moves, result
+    return out
 
 
 walk_skewed_window.launches = 0
+
+
+def kernel_launch(words, rps, row_lo, col_lo, i0, j0, local, max_moves):
+    """K2 on the words' CUDA device, ready to launch: the outputs
+    allocated.  Returns (launch, (moves, result)); each ``launch()`` runs
+    the kernel once on the current stream, raising if the launch failed,
+    and counts nothing (the wrapper counts its launches)."""
+    device = words.device
+    move_words = -(-max_moves // 16)
+    moves = torch.empty(max(move_words, 1), dtype=torch.int32, device=device)
+    result = torch.empty(5, dtype=torch.int32, device=device)
+
+    def launch():
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = _kernel()(
+                words.data_ptr(), rps, words.shape[1] * 128, int(row_lo),
+                int(col_lo), int(i0), int(j0), int(local), moves.data_ptr(),
+                move_words, result.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"walk kernel launch failed: cudaError_t {rc}")
+
+    return launch, (moves, result)
 
 
 def _kernel():

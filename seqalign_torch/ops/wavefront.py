@@ -10,7 +10,9 @@ the native ``sa_traceback_*_skewed`` walkers and K2 read it unchanged.
 
 ``wavefront_strip`` launches the CUDA kernel (``csrc/wavefront.cu``) for
 tensors on a CUDA device and runs ``wavefront_strip_plain`` for tensors
-on the CPU.  Linear gaps only: global, local and semi-global.
+on the CPU.  Linear gaps only: global, local and semi-global, with the
+direction words or score-only with column checkpoints, and from a given
+left boundary column (the checkpoint engine's variants).
 """
 
 from __future__ import annotations
@@ -35,8 +37,14 @@ def strip_rows(r: int = ROWS_PER_SLOT) -> int:
     return r * SLOTS
 
 
+def num_checkpoints(steps: int, ckpt_every: int) -> int:
+    """Checkpoint columns a strip of ``steps`` sweep steps keeps room for
+    (the JAX wrapper's count)."""
+    return max(1, steps // ckpt_every)
+
+
 def _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
-           rps, slots, local, semi):
+           rps, slots, local, semi, with_dirs, ckpt_every, left_in):
     if rps not in RPS_CHOICES:
         raise ValueError(f"rps must be one of {RPS_CHOICES}, got {rps}")
     if slots % 128 or not (slots <= 1024 or slots in (2048, 4096)):
@@ -48,6 +56,13 @@ def _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
         raise ValueError("local and semi are exclusive")
     if not 1 <= k_alpha <= 32:
         raise ValueError(f"alphabet size must be in 1..32, got {k_alpha}")
+    if ckpt_every and (ckpt_every < slots + DIR_STEPS_PER_WORD
+                       or ckpt_every & (ckpt_every - 1)):
+        raise ValueError(f"ckpt_every must be a power of two >= slots + "
+                         f"{DIR_STEPS_PER_WORD}, got {ckpt_every}")
+    if bool(with_dirs) == bool(ckpt_every):
+        raise ValueError("the score-only fill (with_dirs=False) is the one "
+                         "with column checkpoints (ckpt_every > 0)")
     num_blocks = text_steps.shape[0]
     shapes = {
         "text_steps": (text_steps, (num_blocks, STEPS)),
@@ -55,6 +70,8 @@ def _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
         "pattern_slots": (pattern_slots, (rps, slots // 128, 128)),
         "score_matrix": (score_matrix, (k_alpha, k_alpha)),
     }
+    if left_in is not None:
+        shapes["left_in"] = (left_in, (rps + 1, slots // 128, 128))
     device = text_steps.device
     for name, (x, shape) in shapes.items():
         if x.device != device:
@@ -70,85 +87,150 @@ def _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
 
 def wavefront_strip(text_steps, bottom_in, pattern_slots, score_matrix,
                     gap, n, m, i0, k_alpha: int, local: bool = False,
-                    rps: int = ROWS_PER_SLOT, slots: int = SLOTS,
-                    semi: bool = False):
-    """Run one (rps*slots)-row strip sweep (the JAX ``wavefront_strip``
-    with dirs, linear gaps, no checkpoints or left column).
+                    with_dirs: bool = True, rps: int = ROWS_PER_SLOT,
+                    ckpt_every: int = 0, slots: int = SLOTS,
+                    semi: bool = False, left_in=None):
+    """Run one (rps*slots)-row strip sweep (the JAX ``wavefront_strip``,
+    linear gaps).
 
     Args:
       text_steps: (num_blocks, STEPS) int32 — text[t] per step.
       bottom_in: (num_blocks, STEPS) int32 — the strip's top boundary
-        row, H[i0, t+1] per step.
+        row, H[i0, col_lo+t+1] per step.
       pattern_slots: (rps, slots/128, 128) int32 (``layout``).
       score_matrix: (k_alpha, k_alpha) int32.
+      with_dirs: store the direction words; False (score only) exactly
+        when ckpt_every is set.
+      ckpt_every: 0 with the words, or for the score-only fill a power
+        of two >= slots + 16: keep the values of every ckpt_every-th
+        column.
       semi: global recurrence with row-m tracking; the caller passes a
         zero top row.
+      left_in: None (the arithmetic column-0 boundary) or the (rps+1,
+        slots/128, 128) left boundary column of ``make_left_input``: the
+        strip then fills the columns after an arbitrary column col_lo,
+        and j counts from col_lo.
 
-    Returns (dirs, bottom_stream, rowmax, argj, snap), all int32 on the
-    inputs' device:
-      dirs: (num_blocks*STEPS/16*rps, slots/128, 128) skewed words;
+    Returns (dirs, bottom_stream, rowmax, argj, snap, ckpts), int32 on
+    the inputs' device:
+      dirs: (num_blocks*STEPS/16*rps, slots/128, 128) skewed words, or
+        None without with_dirs;
       bottom_stream: (num_blocks, STEPS) — the last slot's last row
         after each step;
       rowmax / argj: (rps, slots/128, 128) — per-row maximum and first
         best column (local: rows <= m; semi: row m; NEG_INF / 0 for
         other rows and in global mode);
       snap: (slots/128, 128) — S[m, n] in the slot owning row m
-        (global), NEG_INF elsewhere.
+        (global), NEG_INF elsewhere;
+      ckpts: None without ckpt_every, else (num_checkpoints*rps,
+        slots/128, 128): entry (q*rps + r, slot) holds S[i0 + rps*slot
+        + r + 1, (q+1)*ckpt_every], and 0 where the slot does not reach
+        that column within the strip's steps.
     """
     _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
-           rps, slots, local, semi)
+           rps, slots, local, semi, with_dirs, ckpt_every, left_in)
     device = text_steps.device
     if device.type == "cpu":
         return wavefront_strip_plain(
             text_steps, bottom_in, pattern_slots, score_matrix, gap, n, m,
-            i0, k_alpha, local=local, rps=rps, slots=slots, semi=semi,
+            i0, k_alpha, local=local, with_dirs=with_dirs, rps=rps,
+            ckpt_every=ckpt_every, slots=slots, semi=semi, left_in=left_in,
         )
     if device.type != "cuda":
         raise ValueError(f"wavefront_strip runs on cuda or cpu, not {device}")
-    num_blocks = text_steps.shape[0]
-    steps = num_blocks * STEPS
-    srows = slots // 128
-    dirs = torch.empty(
-        (steps // DIR_STEPS_PER_WORD * rps, srows, 128),
-        dtype=torch.int32, device=device,
+    launch, out = kernel_launch(
+        text_steps, bottom_in, pattern_slots, score_matrix, gap, n, m, i0,
+        k_alpha, local, rps, ckpt_every, slots, semi, left_in,
     )
-    bottom_out = torch.empty((num_blocks, STEPS), dtype=torch.int32,
-                             device=device)
-    rowmax = torch.empty((rps, srows, 128), dtype=torch.int32, device=device)
-    argj = torch.empty_like(rowmax)
-    snap = torch.empty((srows, 128), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel()(
-            text_steps.data_ptr(), bottom_in.data_ptr(),
-            pattern_slots.data_ptr(), score_matrix.data_ptr(),
-            dirs.data_ptr(), bottom_out.data_ptr(), rowmax.data_ptr(),
-            argj.data_ptr(), snap.data_ptr(), steps, slots, rps, k_alpha,
-            int(gap), int(n), int(m), int(i0), int(local), int(semi),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"wavefront kernel launch failed: cudaError_t {rc}")
+    launch()
     wavefront_strip.launches += 1
-    return dirs, bottom_out, rowmax, argj, snap
+    return out
 
 
 wavefront_strip.launches = 0
+
+
+def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
+                  n, m, i0, k_alpha, local, rps, ckpt_every, slots, semi,
+                  left_in):
+    """K1 on the inputs' CUDA device, ready to launch: the outputs
+    allocated, the checkpoints zeroed; words without ckpt_every, the
+    score-only fill with checkpoints with it.  Returns (launch, outputs) with
+    the outputs of ``wavefront_strip``; each ``launch()`` runs the kernel
+    once on the current stream, raising if the launch failed, and counts
+    nothing (the wrapper counts its launches)."""
+    device = text_steps.device
+    i32 = torch.int32
+    num_blocks = text_steps.shape[0]
+    steps = num_blocks * STEPS
+    srows = slots // 128
+    dirs = ckpts = None
+    if ckpt_every:
+        ckpts = torch.zeros(
+            (num_checkpoints(steps, ckpt_every) * rps, srows, 128),
+            dtype=i32, device=device)
+    else:
+        dirs = torch.empty((steps // DIR_STEPS_PER_WORD * rps, srows, 128),
+                           dtype=i32, device=device)
+    bottom_out = torch.empty((num_blocks, STEPS), dtype=i32, device=device)
+    rowmax = torch.empty((rps, srows, 128), dtype=i32, device=device)
+    argj = torch.empty_like(rowmax)
+    snap = torch.empty((srows, 128), dtype=i32, device=device)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    def launch():
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = _kernel()(
+                text_steps.data_ptr(), bottom_in.data_ptr(),
+                pattern_slots.data_ptr(), score_matrix.data_ptr(),
+                ptr(left_in), ptr(dirs), bottom_out.data_ptr(),
+                rowmax.data_ptr(), argj.data_ptr(), snap.data_ptr(),
+                ptr(ckpts), steps, slots, rps, k_alpha, int(gap), int(n),
+                int(m), int(i0), int(local), int(semi), int(ckpt_every),
+                stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"wavefront kernel launch failed: "
+                               f"cudaError_t {rc}")
+
+    return launch, (dirs, bottom_out, rowmax, argj, snap, ckpts)
 
 
 def _kernel():
     fn = library("wavefront").sa_wavefront_strip
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 10 + [p]
+        fn.argtypes = [p] * 11 + [i] * 11 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def make_left_input(lc_full, rps: int, slots: int):
+    """Slot layout of a left boundary column for ``wavefront_strip``'s
+    left_in (the JAX ``make_left_input``).
+
+    lc_full: (rps*slots + 1,) — lc_full[ri] = S[row_lo + ri, col_lo] for
+    ri = 0..rows.  Returns (rps+1, slots/128, 128) int32 on its device:
+    entry (0, slot) is lc_full[rps*slot] (the neighbour-boundary and
+    corner value) and entry (r+1, slot) is lc_full[rps*slot + r + 1] (the
+    slot's own rows).
+    """
+    lc_full = torch.as_tensor(lc_full).to(torch.int32)
+    body = lc_full[1:].reshape(slots, rps).t()
+    head = lc_full[:-1].reshape(slots, rps)[:, :1].t()
+    return torch.cat([head, body]).contiguous().reshape(
+        rps + 1, slots // 128, 128)
+
+
 def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
                           score_matrix, gap, n, m, i0, k_alpha: int,
-                          local: bool = False, rps: int = ROWS_PER_SLOT,
-                          slots: int = SLOTS, semi: bool = False):
+                          local: bool = False, with_dirs: bool = True,
+                          rps: int = ROWS_PER_SLOT, ckpt_every: int = 0,
+                          slots: int = SLOTS, semi: bool = False,
+                          left_in=None):
     """Plain PyTorch version of ``wavefront_strip``, on the inputs'
     device, with identical outputs.  Each step updates all slots at once;
     the rps rows of a slot, which chain through the top neighbour, are
@@ -166,7 +248,11 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
     slot = torch.arange(slots, device=device)
     rows_i = (i0 + rps * slot)[None, :] + torch.arange(
         1, rps + 1, device=device)[:, None]                # (rps, slots)
-    if local:
+    if left_in is not None:
+        left = left_in.reshape(rps + 1, slots)
+        H = left[1:].clone()
+        topsh = left[0].clone()
+    elif local:
         H = torch.zeros((rps, slots), dtype=i32, device=device)
         topsh = torch.zeros(slots, dtype=i32, device=device)
     else:
@@ -187,10 +273,15 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
     if not track and i0 < m <= i0 + rps * slots:
         hit_s, hit_r = divmod(m - 1 - i0, rps)
         hit_t = n + hit_s - 1
-    dirs = torch.empty((steps // DIR_STEPS_PER_WORD * rps, slots),
-                       dtype=i32, device=device)
+    dirs = ckpts = None
+    if with_dirs:
+        dirs = torch.empty((steps // DIR_STEPS_PER_WORD * rps, slots),
+                           dtype=i32, device=device)
+        word = torch.zeros((rps, slots), dtype=i32, device=device)
+    if ckpt_every:
+        ckpts = torch.zeros((num_checkpoints(steps, ckpt_every) * rps, slots),
+                            dtype=i32, device=device)
     stream = torch.empty(steps, dtype=i32, device=device)
-    word = torch.zeros((rps, slots), dtype=i32, device=device)
     for t in range(steps):
         jvec = t - slot + 1
         started = (jvec >= 1)[None, :]
@@ -204,17 +295,25 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
         chain = torch.cummax(torch.cat([nb_top[None, :], c]) + ramp,
                              dim=0).values - ramp
         cur = torch.where(started, chain[1:], left)
-        top = torch.cat([nb_top[None, :], cur[:-1]])
-        gap_best = torch.maximum(top, left) - gap
-        best = torch.maximum(diag, gap_best)
-        d = torch.where(diag > gap_best, 1, torch.where(left >= top, 0, 2))
-        if local:
-            d = torch.where(best > 0, d, 3)
-        u = t % DIR_STEPS_PER_WORD
-        word = d.to(i32) if u == 0 else word | (d.to(i32) << (2 * u))
-        if u == DIR_STEPS_PER_WORD - 1:
-            b = t // DIR_STEPS_PER_WORD
-            dirs[b * rps:(b + 1) * rps] = word
+        if with_dirs:
+            top = torch.cat([nb_top[None, :], cur[:-1]])
+            gap_best = torch.maximum(top, left) - gap
+            d = torch.where(diag > gap_best, 1,
+                            torch.where(left >= top, 0, 2))
+            if local:
+                d = torch.where(torch.maximum(diag, gap_best) > 0, d, 3)
+            u = t % DIR_STEPS_PER_WORD
+            word = d.to(i32) if u == 0 else word | (d.to(i32) << (2 * u))
+            if u == DIR_STEPS_PER_WORD - 1:
+                b = t // DIR_STEPS_PER_WORD
+                dirs[b * rps:(b + 1) * rps] = word
+        if ckpt_every:
+            # At most one slot reaches a checkpoint column j = (q+1)*C at
+            # step t (C > slots): the slot t + 1 - j.
+            s_hit = (t + 1) % ckpt_every
+            if s_hit < slots and t + 1 - s_hit >= ckpt_every:
+                q = (t + 1 - s_hit) // ckpt_every - 1
+                ckpts[q * rps:(q + 1) * rps, s_hit] = cur[:, s_hit]
         if track:
             valid = started & (jvec <= n)[None, :] & row_ok
             cand = torch.where(valid, cur, NEG_INF)
@@ -227,11 +326,12 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
         stream[t] = H[rps - 1, slots - 1]
     srows = slots // 128
     return (
-        dirs.reshape(-1, srows, 128),
+        None if dirs is None else dirs.reshape(-1, srows, 128),
         stream.reshape(num_blocks, STEPS),
         acc.reshape(rps, srows, 128),
         acc_j.reshape(rps, srows, 128),
         snap.reshape(srows, 128),
+        None if ckpts is None else ckpts.reshape(-1, srows, 128),
     )
 
 
@@ -285,14 +385,9 @@ def wavefront_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
 
     pat_pad = np.zeros(num_strips * rows, dtype=np.int32)
     pat_pad[:m] = pattern_np
-    if local:
-        bottom = np.zeros(steps_pad, dtype=np.int64)
-    else:
-        bottom = -gap * (np.arange(steps_pad, dtype=np.int64) + 1)
     ts_dev = torch.as_tensor(layout.text_steps(text_np, steps_pad)).to(device)
     sm_dev = sm.to(device)
-    bottom = torch.as_tensor(
-        bottom.astype(np.int32).reshape(num_blocks, STEPS)).to(device)
+    bottom = layout.top_row(steps_pad, gap, local, device)
 
     words = np.empty(
         (num_strips, (steps_pad // DIR_STEPS_PER_WORD) * rps, slots),
@@ -304,7 +399,7 @@ def wavefront_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
         pat_slots = torch.as_tensor(
             layout.pattern_slots(pat_pad[i0:i0 + rows], rps, slots)
         ).to(device)
-        dirs, bot_out, rowmax, argj, snap = wavefront_strip(
+        dirs, bot_out, rowmax, argj, snap, _ = wavefront_strip(
             ts_dev, bottom, pat_slots, sm_dev, gap, n, m, i0,
             k_alpha=k_alpha, local=local, rps=rps, slots=slots,
         )

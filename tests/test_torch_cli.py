@@ -11,7 +11,8 @@ import pytest
 
 import seqalign_torch.cli as port_cli
 import seqalign_tpu.cli as jax_cli
-from seqalign_torch import constants
+from seqalign_torch import config, constants
+from seqalign_torch.ops import checkpoint, direct
 
 from .torch_support import one_torch_thread  # noqa: F401
 
@@ -112,11 +113,35 @@ def test_no_cuda_device_gives_mem_error():
 
 @pytest.mark.parametrize("argv,needle", [
     (["--gap-extend", "2", *DNA], "affine"),
-    (["data/dna/NC_045839.txt", "data/dna/mutated_NC_031033.1.txt"],
-     "checkpoint engine"),
-], ids=["affine", "beyond-one-strip"])
+], ids=["affine"])
 def test_not_ported_requests_give_error(argv, needle):
     rc, out, err = run_port(["-g", *argv])
     assert (rc, out) == (1, "")
     assert err.startswith("error: ") and needle in err
     assert "Traceback" not in err
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_checkpoint_route_matches_oracle(mode, cpu_engine, monkeypatch,
+                                         capsys):
+    # A pair past the wavefront route's host budget that the direct route
+    # does not take: -g runs the checkpoint engine, here at small tiles
+    # (128 rows x 256 columns) so that the path crosses many of them.
+    calls = []
+    real = checkpoint.checkpointed_align
+
+    def small(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs, ckpt_cols=256, rps=1, slots=128)
+
+    monkeypatch.setattr(config, "MAX_HOST_DIRS_BYTES", 0)
+    monkeypatch.setattr(direct, "fits_direct", lambda n, m: False)
+    monkeypatch.setattr(checkpoint, "checkpointed_align", small)
+    argv = [mode, "-p", "data/protein/P04775.fasta",
+            "data/protein/P10635.fasta"]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    assert len(calls) == 1
+    assert rc_g == rc_c == 0
+    assert "# Score:" in out_g
+    assert out_g == out_c
