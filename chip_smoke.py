@@ -10,7 +10,8 @@ without its last line:
 
 1. Build the CUDA kernels (K1 ``csrc/wavefront.cu``, K2 ``csrc/walk.cu``,
    K3 ``csrc/interpair.cu``, K4 ``csrc/batch_walk.cu``) and the native
-   oracle from the sources, all at once, and print ptxas's lines.
+   oracle from the sources, all at once, and print the build time and
+   ptxas's lines.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
@@ -29,7 +30,11 @@ without its last line:
    through ``-g``.  Its score must equal the oracle's O(n)-memory
    score-only fill, and rescoring the printed alignment must give it too.
    Then each kernel's launch alone is timed at this shape with CUDA
-   events, and held against its plain version there.
+   events; K2 is held against its plain version there, K1 at a smaller
+   depth (the text's first PLAIN_DEPTH letters) and on a late window:
+   the last whole WINDOW_COLS columns, re-filled from a column
+   checkpoint of the score-only fill by K1 and by its plain version,
+   must equal the run's words there.
 6. K3 (score-only and with direction words) and K4 against their plain
    versions, on the card: global, local and semi-global, DNA and protein,
    ragged lengths with padding pairs, n not a multiple of 128, tile_pairs
@@ -56,7 +61,8 @@ without its last line:
     and checkpoint entry; then with a left column and words on a tile in
     row 0, one in column 0 and an interior one of a real phase-1 fill
     (rps 4 x 1024, 2048 columns), each walked by K2 and its plain
-    version.  Exact.
+    version (in a local tile from the best cell of its bottom row).
+    Exact.
 11. The checkpoint engine at forced small geometries, so that the
     paths cross many tiles: ``checkpointed_align`` on NC_034972.1 x
     mutated_NC_034972.1 (rps 4 x 1024, 2048 columns) and on P33450 x
@@ -74,14 +80,43 @@ without its last line:
     strip (K1 score-only with checkpoints) and one full-size interior
     tile (K1 with the left column and words, K2 from the middle of the
     tile) are timed, their launches alone, and held against their plain
-    versions there; and the host's share of a path tile is timed:
+    versions (the strip's at a smaller depth, past its first checkpoint
+    column; the tile's bottom row must equal phase 1's strip there, which
+    holds the strip's deep columns too); and the host's share of a path
+    tile is timed:
     ``Tiles.walk`` on the host's clock less the two launches, and the
     read-back of K2's result and moves alone.
-13. A JSON line of the kernels, the card's name and power limit from
+13. Affine (Gotoh) K1 and K2 against their plain versions, on the card:
+    K1 with words and score-only with checkpoints at rps 16 x 4096, 4 x
+    1024 and 1 x 128 slots, three modes, DNA and protein, extend < open
+    and extend == open; K1 with the left columns of H and E on row-0,
+    column-0 and interior tiles of real affine phase-1 fills (rps 16 x
+    4096 slots with 8192 columns a tile and two strips, 4 x 1024 and 1 x
+    128); every output (words, run bits, both streams, trackers, the H
+    and E checkpoints), and K2 on each set of words from gap states 0, 1
+    and 2 and with a buffer of 64 moves (in a local tile from the best
+    cell of its bottom row).  Exact.
+14. The affine main path: ``-g --gap-extend`` (``cli.main``) in this
+    process on NC_018874 x mutated (three modes) and on P08519 x P10635
+    (protein, local), each byte-identical to ``python -m seqalign_torch
+    -c`` with the same flags and each taking the direct route (the launch
+    counters); then ``checkpointed_align(gap_extend=...)`` at rps 1 x
+    128, 256 columns, on NC_018874 x mutated and P33450 x mutated, three
+    modes each, byte-identical to ``oracle_align_affine``, K1 = strips +
+    path tiles and K2 = path tiles, the plain versions made to raise.
+15. Affine at full width, ``-g --gap-penalty 8 --gap-extend 2``: the
+    direct route on phase 5's pair (two word planes) and the checkpoint
+    engine on phase 12's, each score equal to the oracle's affine
+    score-only fill and to the rescored alignment (a run of L gaps costs
+    8 + 2(L-1)); walls, phase times, tiles and peak memory printed.  Then
+    each affine kernel's launch alone is timed (K1 with words at full
+    width, one phase-1 strip, one full-size interior tile, K2), held
+    against the plain versions at phase 13's shapes.
+16. A JSON line of the kernels, the card's name and power limit from
     nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
-The oracle's side of phases 4, 5, 7-9, 11 and 12 runs in subprocesses
-and threads beside the device phases.
+The oracle's side of phases 4, 5, 7-9, 11, 12, 14 and 15 runs in
+subprocesses and threads beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
 
@@ -132,6 +167,16 @@ K3_OPS_PER_CELL = 5
 K3_DIRS_OPS_PER_CELL = K3_OPS_PER_CELL + 6
 # K4, per move: as K2's walk.
 K4_OPS_PER_MOVE = K2_OPS_PER_MOVE
+# Affine (Gotoh) K1, per cell: H is 9 (for each of E and F two
+# subtractions and a max; the max of the two; the diagonal's add; the
+# best's max), the whole of the score-only variant; the words add the 6
+# direction operations and 4 for the run bits (two compares, a shift and
+# an or into the second word).
+K1_AFFINE_SCORE_OPS_PER_CELL = 9
+K1_AFFINE_OPS_PER_CELL = K1_AFFINE_SCORE_OPS_PER_CELL + 6 + 4
+# Affine K2, per move: the run bits out of the second word (2) and the
+# next gap state (2) besides the linear walk's.
+K2_AFFINE_OPS_PER_MOVE = K2_OPS_PER_MOVE + 4
 
 DNA = ("data/dna/dna_01.txt", "data/dna/dna_02.txt")
 NC_034972 = ("data/dna/NC_034972.1.txt", "data/dna/mutated_NC_034972.1.txt")
@@ -149,6 +194,10 @@ MAIN_PATH = [
 FULL_WIDTH = ["data/dna/NC_045839.txt", "data/dna/GCA_003434045.txt"]
 # The checkpoint engine's full-width pair: both sequences past one strip.
 LONG_PAIR = ["data/dna/AbHV_ORF111.txt", "data/dna/mutated_AbHV_ORF111.txt"]
+# Text letters of phase 5's plain comparison, and the width of its late
+# window (a power of two >= slots + 16: a checkpoint spacing).
+PLAIN_DEPTH = 16384
+WINDOW_COLS = 8192
 # K1's checkpoint variants against their plain versions: rps, slots,
 # ckpt_every, n.
 CKPT_GEOMETRIES = ((16, 4096, 8192, 9000), (4, 1024, 2048, 5000),
@@ -163,6 +212,37 @@ CKPT_MAIN_PATH = [
 
 MODES = {"global": {}, "local": {"local": True}, "semi": {"semi": True}}
 ALGO = {"global": 0, "local": 1, "semi": 2}
+# Affine K1 and K2 against their plain versions (phase 13): rps, slots,
+# ckpt_every, text letters with words, text letters score-only.
+AFFINE_GEOMETRIES = ((16, 4096, 8192, 1200, 8500),
+                     (4, 1024, 2048, 2000, 4500),
+                     (1, 128, 256, 2000, 2000))
+# Tiles of a real affine phase-1 fill (phase 13): rps, slots, columns a
+# tile, n, m, the (k, mode) cases.  The first is the main path's tile
+# geometry (rps 16 x 4096 slots, two strips), at 8192 columns a tile.
+AFFINE_TILE_FILLS = (
+    (16, 4096, 8192, 12000, 65536 + 1500, ((4, "global"),)),
+    (4, 1024, 2048, 5000, 6000, ((4, "global"), (23, "local"))),
+    (1, 128, 256, 1500, 600, tuple((k, mode) for k in (4, 23)
+                                   for mode in MODES)),
+)
+NC_018874 = ("data/dna/NC_018874.txt", "data/dna/mutated_NC_018874.txt")
+DNA_AFFINE = ["--gap-penalty", "8", "--gap-extend", "2"]
+# The affine main path through -g (phase 14): all take the direct route.
+AFFINE_MAIN_PATH = [
+    ["--global", *DNA_AFFINE, *NC_018874],
+    ["--local", *DNA_AFFINE, *NC_018874],
+    ["--semi-global", *DNA_AFFINE, *NC_018874],
+    ["-p", "--gap-penalty", "11", "--gap-extend", "1", "--local",
+     "data/protein/P08519.fasta", "data/protein/P10635.fasta"],
+]
+# The affine checkpoint engine at a forced small geometry (phase 14).
+AFFINE_CKPT_PAIRS = (
+    [*DNA_AFFINE, *NC_018874],
+    ["-p", "--gap-penalty", "11", "--gap-extend", "1",
+     "data/protein/P33450.fasta", "data/protein/mutated_P33450.fasta"],
+)
+AFFINE_CKPT_GEOMETRY = dict(rps=1, slots=128, ckpt_cols=256)
 # Bundled pairs in the batch main path's mix (argv of parse_arguments).
 BATCH_BUNDLED = {
     4: [["data/dna/NC_018874.txt", "data/dna/mutated_NC_018874.txt"],
@@ -314,10 +394,12 @@ def ptxas_summary(path):
     )
     lines = []
     for name, stack, st, ld, regs in pattern.findall(text):
-        args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name)
+        args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", name)
         if args:
             label = (f"<rps {args[1]}, slots/thread {args[2]}, "
-                     f"track {args[3]}, dirs {args[4]}>")
+                     f"track {args[3]}, dirs {args[4]}, affine {args[5]}>")
+        elif args := re.search(r"walk_skewed_kernelILb(\d)E", name):
+            label = f"<affine {args[1]}>"
         elif args := re.search(r"ILi(\d)ELb(\d)E", name):
             label = f"<mode {args[1]}, dirs {args[2]}>"
         elif args := re.search(r"ILi(\d)EE", name):
@@ -356,13 +438,29 @@ def walk_start(out, n, m, rps, slots, local, semi):
     return bi, bj
 
 
-def compare_walk(words, rps, i0, j0, local, max_moves, row_lo=0, col_lo=0):
-    """K2 and its plain version from (i0, j0): (max_abs_err, result)."""
+def tile_walk_start(out, b, c, rows, cols, slots, n, m, local):
+    """K2's start in tile (b, c) re-filled as ``out``: its last real cell;
+    local, the best cell of the tile's bottom row, as the last cell is
+    mostly a STOP, where the walk makes no move."""
+    i0, j0 = min((b + 1) * rows, m), min((c + 1) * cols, n)
+    if local:
+        width = min(cols, n - c * cols)
+        last = out[1].reshape(-1)[slots - 1:slots - 1 + width]
+        if int(last.max()) > 0:
+            i0, j0 = (b + 1) * rows, c * cols + int(last.argmax()) + 1
+    return i0, j0
+
+
+def compare_walk(words, rps, i0, j0, local, max_moves, row_lo=0, col_lo=0,
+                 words2=None, state0=0):
+    """K2 and its plain version from (i0, j0), affine with words2 from
+    state0: (max_abs_err, result)."""
     mv, res = walk.walk_skewed_window(words, rps, row_lo, col_lo, i0, j0,
-                                      local, max_moves)
+                                      local, max_moves, words2, state0)
     torch.cuda.synchronize()
     mv_p, res_p = walk.walk_skewed_window_plain(words, rps, row_lo, col_lo,
-                                                i0, j0, local, max_moves)
+                                                i0, j0, local, max_moves,
+                                                words2, state0)
     used = -(-int(res_p[0]) // 16)
     err = max_abs_err([res, mv[:used]], [res_p, mv_p[:used]])
     return err, [int(x) for x in res.cpu()]
@@ -469,6 +567,48 @@ def rescore(aligned_text, aligned_pattern, alphabet, sm, gap):
     return int(sm[a[~gaps], b[~gaps]].sum()) - gap * int(gaps.sum())
 
 
+def late_window(words, text, pattern, sm, k, gap, rps, slots):
+    """Deep cells of phase 5's run against the plain version: the last
+    whole window of WINDOW_COLS columns, re-filled from the score-only
+    fill's column checkpoint before it by K1 with the left column and by
+    its plain version, whose words must equal ``words`` (the whole run's)
+    there, cell for cell, but for the words that straddle a slot's window
+    edges.  Global, one strip from row 0.  Returns (what was compared,
+    max_abs_err)."""
+    n, m = len(text), len(pattern)
+    ck = checkpoint.checkpointed_fill(text, pattern, sm, k, gap,
+                                      ckpt_cols=WINDOW_COLS, rps=rps,
+                                      slots=slots, device=words.device)
+    tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
+    c = n // WINDOW_COLS - 1
+    c0 = c * WINDOW_COLS
+    targs, tkw = tiles.strip_args(0, c)
+    launch, out = wavefront.kernel_launch(*targs, False, rps, 0, slots, False,
+                                          tkw["left_in"])
+    launch()
+    plain, plain_ms = timed(wavefront.wavefront_strip_plain, *targs, **tkw)
+    err = max_abs_err(out, plain)
+    del plain
+    # Block w of a slot s holds steps 16w .. 16w+15, the columns c0 + 16w
+    # - s + 1 .. c0 + 16w - s + 16, in the tile and at block c0/16 + w of
+    # the whole run alike.
+    blocks = tiles.tile_steps // 16
+    check(c0 % 16 == 0 and c0 // 16 + blocks <= words.shape[0] // rps,
+          "late window: past the run's words")
+    w = 16 * torch.arange(blocks, device=words.device)[:, None]
+    s = torch.arange(slots, device=words.device)[None, :]
+    inside = ((w >= s) & (w + 16 <= WINDOW_COLS + s))[:, None, :]
+    run = words.reshape(-1, rps, slots)[c0 // 16:c0 // 16 + blocks]
+    diff = torch.where(inside, run.long() - out[0].reshape(blocks, rps,
+                                                           slots).long(), 0)
+    err = max(err, int(diff.abs().max()))
+    cells = int(inside.sum()) * rps * 16
+    return (f"the columns {c0 + 1}-{c0 + WINDOW_COLS} of its {rps * slots} "
+            f"rows ({cells} cells), re-filled from the score-only fill's "
+            f"column-{c0} checkpoint by K1 and by the plain version "
+            f"({plain_ms:.0f} ms), equal to the run's words there"), err
+
+
 def phase_full_width(oracle_score):
     """Phase 5: the full-width pair through -g, then each kernel timed
     at its shape and held against its plain version."""
@@ -525,13 +665,23 @@ def phase_full_width(oracle_score):
     log(f"full width: K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms "
         f"({moves} moves), each launch alone, CUDA events")
 
+    # K1 against its plain version at a smaller depth, the first
+    # PLAIN_DEPTH letters of the text (the plain version steps once a
+    # sweep step: the whole text takes it 100-130 s).
+    ts_s, pat_s, _ = direct.strip_inputs(text[:PLAIN_DEPTH], pattern, sm, k,
+                                         rps, slots, "cuda")
+    args_s = (ts_s, layout.top_row(ts_s.numel(), gap, False, "cuda"), pat_s,
+              sm_dev, gap, PLAIN_DEPTH, m, 0, k)
+    launch, k1_small = wavefront.kernel_launch(*args_s, False, rps, 0, slots,
+                                               False, None)
+    launch()
     t1 = time.time()
-    k1_plain = wavefront.wavefront_strip_plain(*args, **kw)
+    k1_plain = wavefront.wavefront_strip_plain(*args_s, **kw)
     torch.cuda.synchronize()
     k1_plain_ms = (time.time() - t1) * 1e3
-    k1_err = max_abs_err(k1_out, k1_plain)
+    k1_err = max_abs_err(k1_small, k1_plain)
     check(k1_err == 0, f"full width: K1 max_abs_err {k1_err}")
-    del k1_plain
+    del k1_plain, k1_small
     t1 = time.time()
     mv_p, res_p = walk.walk_skewed_window_plain(k1_out[0], rps, 0, 0, m, n,
                                                 False, max_moves)
@@ -540,8 +690,17 @@ def phase_full_width(oracle_score):
     used = -(-moves // 16)
     k2_err = max_abs_err([res, mv[:used]], [res_p, mv_p[:used]])
     check(k2_err == 0, f"full width: K2 max_abs_err {k2_err}")
-    log(f"full width: plain K1 {k1_plain_ms:.1f} ms, plain K2 "
-        f"{k2_plain_ms:.1f} ms; both exact")
+    plain_shape = (f"{m} x {PLAIN_DEPTH} (the text's first {PLAIN_DEPTH} "
+                   f"letters), rps {rps}, slots {slots}, global")
+    log(f"full width: plain K1 {k1_plain_ms:.1f} ms at a smaller depth, "
+        f"{plain_shape}, plain K2 {k2_plain_ms:.1f} ms at full width; both "
+        f"exact")
+    window, werr = late_window(k1_out[0], text, pattern, sm, k, gap, rps,
+                               slots)
+    check(werr == 0, f"full width: K1's late window max_abs_err {werr}")
+    log(f"full width: K1's late window, {window}; exact")
+    k1_err = max(k1_err, werr)
+    plain_shape += f"; and {window}"
 
     steps = ts.numel()
     cells = n * m
@@ -555,7 +714,8 @@ def phase_full_width(oracle_score):
         "shape": f"{m} x {n}, rps {rps}, slots {slots}, global",
         "wall_s": wall, "peak_bytes": peak, "counts": counts,
         "K1": bound(k1_bytes, k1_ops) | {
-            "ms": k1_ms, "plain_ms": k1_plain_ms, "err": k1_err},
+            "ms": k1_ms, "plain_ms": k1_plain_ms, "err": k1_err,
+            "plain_shape": plain_shape},
         "K2": bound(k2_bytes, k2_ops) | {
             "ms": k2_ms, "plain_ms": k2_plain_ms, "err": k2_err},
     }
@@ -1007,9 +1167,8 @@ def phase_ckpt_kernels(device="cuda"):
                 check(err == 0, f"K1 tile {where} {mode} k={k}: max_abs_err "
                                 f"{err}")
                 k1_err = max(k1_err, err)
-                # K2 from the tile's last real cell.
-                i0 = min((b + 1) * tiles.rows, m)
-                j0 = min((c + 1) * cols, n)
+                i0, j0 = tile_walk_start(out, b, c, tiles.rows, cols,
+                                         tiles.slots, n, m, mode == "local")
                 werr, res = compare_walk(out[0], 4, i0, j0, mode == "local",
                                          tiles.rows + cols + 1,
                                          b * tiles.rows, c * cols)
@@ -1164,13 +1323,28 @@ def phase_long_pair(oracle_score, device="cuda"):
           and torch.equal(strip_out[1].reshape(-1)[slots - 1:],
                           ck.boundaries[1][:steps - slots + 1]),
           "long pair: strip 1 differs from the run's own fill")
-    plain, ckpt_plain_ms = timed(wavefront.wavefront_strip_plain, *args, **kw)
-    ckpt_err = max_abs_err(strip_out, plain)
+    # The plain version at a smaller depth: the strip's first cols +
+    # slots text letters, past its first checkpoint column (the whole
+    # strip takes it 42-47 s).
+    depth = cols + slots
+    steps_s = layout.steps_padded(depth, slots)
+    args_s = (args[0][:steps_s // layout.STEPS],
+              args[1][:steps_s // layout.STEPS], *args[2:5], depth,
+              *args[6:])
+    launch, small = wavefront.kernel_launch(*args_s, False, rps, cols, slots,
+                                            False, None)
+    launch()
+    plain, ckpt_plain_ms = timed(wavefront.wavefront_strip_plain, *args_s,
+                                 **kw)
+    ckpt_err = max_abs_err(small, plain)
     check(ckpt_err == 0, f"long pair: K1 score-only max_abs_err {ckpt_err}")
-    del plain
+    del plain, small
+    ckpt_plain_shape = (f"strip 1, {rows} x {steps_s} steps (the text's "
+                        f"first {depth} letters)")
     log(f"long pair, one phase-1 strip ({rows} x {steps} steps): K1 "
         f"score-only with checkpoints {ckpt_ms:.3f} ms (its launch alone, "
-        f"CUDA events, best of 2), plain {ckpt_plain_ms:.1f} ms; exact")
+        f"CUDA events, best of 2); plain {ckpt_plain_ms:.1f} ms at a "
+        f"smaller depth, {ckpt_plain_shape}; exact")
 
     # One full-size interior tile of the path's band (strip 1, column
     # tile 2), re-filled from the run's checkpoints: K1 with the left
@@ -1191,6 +1365,11 @@ def phase_long_pair(oracle_score, device="cuda"):
     tile_err = max_abs_err(tile_out, plain)
     check(tile_err == 0, f"long pair: K1 tile max_abs_err {tile_err}")
     del plain
+    # The tile's bottom row is the one phase 1 computed score-only at its
+    # columns: through the tile, the plain version holds strip 1 there.
+    check(torch.equal(tile_out[1].reshape(-1)[slots - 1:slots - 1 + cols],
+                      ck.boundaries[b][c * cols:(c + 1) * cols]),
+          "long pair: the tile's bottom row differs from phase 1's")
     werr, wres = compare_walk(tile_out[0], rps, i0, j0, False, max_moves,
                               b * rows, c * cols)
     check(werr == 0 and [int(x) for x in res.cpu()] == wres,
@@ -1199,7 +1378,8 @@ def phase_long_pair(oracle_score, device="cuda"):
         f"({b}, {c})): K1 with the left column and words {tile_ms:.3f} ms, "
         f"K2 from ({i0}, {j0}) {walk_ms:.3f} ms ({wres[0]} moves), each "
         f"launch alone, CUDA events; plain K1 {tile_plain_ms:.1f} ms; both "
-        f"exact")
+        f"exact, and the tile's bottom row equal to phase 1's strip {b} at "
+        f"the columns {c * cols + 1}-{(c + 1) * cols}")
 
     # The host's share of a path tile: Tiles.walk from the same cell (the
     # tile's inputs, both launches, the read-back of K2's result and
@@ -1209,7 +1389,7 @@ def phase_long_pair(oracle_score, device="cuda"):
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        moves, _, _, _ = tiles.walk(i0, j0)
+        moves, _, _, _, _ = tiles.walk(i0, j0)
         walls.append((time.perf_counter() - t0) * 1e3)
     check(len(moves) == wres[0], f"long pair: Tiles.walk made {len(moves)} "
           f"moves, K2 alone {wres[0]}")
@@ -1240,6 +1420,7 @@ def phase_long_pair(oracle_score, device="cuda"):
                                      ck.colvals[1].shape[0]),
                          real_cells * K1_SCORE_OPS_PER_CELL) | {
             "ms": ckpt_ms, "plain_ms": ckpt_plain_ms, "err": ckpt_err,
+            "plain_shape": ckpt_plain_shape,
             "shape": f"one strip of {rows} x {steps} steps of {m} x {n}, "
                      f"checkpoints every {cols}, global"},
         "K1-tile": bound(strip_bytes(tiles.tile_steps, rps, slots, k,
@@ -1249,6 +1430,480 @@ def phase_long_pair(oracle_score, device="cuda"):
             "shape": f"one tile of {rows} x {tiles.tile_steps} steps of "
                      f"{m} x {n}, left column and words, global"},
     }
+
+
+def affine_costs(k, mode):
+    """(open, extend) of phase 13's cases: extend == open (the linear
+    costs) in semi-global DNA, extend < open elsewhere."""
+    if k == 4:
+        return (5, 5) if mode == "semi" else (8, 2)
+    return 11, 1
+
+
+def affine_strip_case(rng, n, m, k, rps, slots, local, semi, gap, ext,
+                      device):
+    """Random one-strip inputs from row 0 with the affine top rows of H
+    and F, as tensors on ``device``: (args, fbot_in)."""
+    text = rng.integers(0, k, n).astype(np.int32)
+    pattern = rng.integers(0, k, m).astype(np.int32)
+    steps = layout.steps_padded(n, slots)
+    pat_pad = np.zeros(rps * slots, dtype=np.int32)
+    pat_pad[:m] = pattern
+    bottom = layout.top_row(steps, gap, local or semi, "cpu", ext=ext).numpy()
+    args = layout.from_reference_arrays(
+        layout.text_steps(text, steps), bottom,
+        layout.pattern_slots(pat_pad, rps, slots), score_matrix(k), k,
+        device)
+    fbot = torch.full_like(args[1], wavefront.NEG_HALF)
+    return args, fbot
+
+
+def compare_affine_walks(words, words2, rps, i0, j0, local, max_moves,
+                         row_lo=0, col_lo=0):
+    """Affine K2 against its plain version from (i0, j0) in the three gap
+    states, and from state 0 with a buffer of 64 moves: (max_abs_err,
+    moves of the state-0 walk)."""
+    moves = None
+    for state0 in (0, 1, 2):
+        err, res = compare_walk(words, rps, i0, j0, local, max_moves,
+                                row_lo, col_lo, words2, state0)
+        check(err == 0, f"K2 affine from ({i0}, {j0}) state {state0}: "
+                        f"max_abs_err {err}")
+        moves = res[0] if moves is None else moves
+    # A buffer of 64 moves: the walk stops there, done = 0.
+    err, res = compare_walk(words, rps, i0, j0, local, 64, row_lo, col_lo,
+                            words2, 0)
+    check(err == 0 and (moves <= 64 or res[0] == 64 and res[4] == 0),
+          f"K2 affine from ({i0}, {j0}): short buffer {res}")
+    return err, moves
+
+
+def phase_affine_kernels(device="cuda"):
+    """Phase 13: affine K1 (with words, score-only with checkpoints, with
+    a left column) and affine K2 against their plain versions.  Returns
+    the errors and, at rps 16 x 4096 and on the first tile, the plain
+    versions' times."""
+    rng = np.random.default_rng(2028)
+    errs = dict.fromkeys(("K1-affine", "K1-affine-ckpt", "K1-affine-tile",
+                          "K2-affine"), 0)
+    plain = {}
+    for rps, slots, every, n_words, n_ckpt in AFFINE_GEOMETRIES:
+        for k in (4, 23):
+            for mode in MODES:
+                local, semi = mode == "local", mode == "semi"
+                gap, ext = affine_costs(k, mode)
+                m = rps * slots - 3
+                tag = (f"{mode:6s} k={k:2d} rps={rps:2d} slots={slots} "
+                       f"open {gap} extend {ext}")
+                args, fbot = affine_strip_case(rng, n_words, m, k, rps, slots,
+                                               local, semi, gap, ext, device)
+                kw = dict(local=local, rps=rps, slots=slots, semi=semi,
+                          affine=True, ext=ext, fbot_in=fbot)
+                out, ms = timed(wavefront.wavefront_strip, *args, gap,
+                                n_words, m, 0, k, **kw)
+                want, plain_ms = timed(wavefront.wavefront_strip_plain,
+                                       *args, gap, n_words, m, 0, k, **kw)
+                err = max_abs_err(out, want)
+                check(err == 0 and out[6] is not None,
+                      f"K1 affine {tag}: max_abs_err {err}")
+                del want
+                i0, j0 = walk_start(out[:6], n_words, m, rps, slots, local,
+                                    semi)
+                max_moves = -(-(n_words + m + 1) // 16) * 16
+                t0 = time.time()
+                werr, moves = compare_affine_walks(out[0], out[6], rps, i0,
+                                                   j0, local, max_moves)
+                walks_s = time.time() - t0
+                errs["K1-affine"] = max(errs["K1-affine"], err)
+                errs["K2-affine"] = max(errs["K2-affine"], werr)
+                if rps == 16 and "K1-affine" not in plain:
+                    # The plain walk's time: one walk from state 0.
+                    _, walk_ms = timed(walk.walk_skewed_window_plain, out[0],
+                                       rps, 0, 0, i0, j0, local, max_moves,
+                                       out[6], 0)
+                    shape = f"{m} x {n_words}, rps {rps}, slots {slots}"
+                    plain["K1-affine"] = (plain_ms, f"{shape}, {mode}")
+                    plain["K2-affine"] = (walk_ms, f"{moves} moves of the "
+                                                   f"words of {shape}")
+                log(f"K1 affine with words {tag}: exact (kernel {ms:.1f} "
+                    f"ms, plain {plain_ms:.0f} ms); K2 from ({i0}, {j0}) in "
+                    f"states 0-2 and with 64 moves: exact, {moves} moves "
+                    f"({walks_s:.1f} s)")
+
+                if rps == 16 and (k, mode) not in ((4, "global"),
+                                                   (23, "local")):
+                    continue  # two score-only cases at the widest strip
+                args, fbot = affine_strip_case(rng, n_ckpt, m, k, rps, slots,
+                                               local, semi, gap, ext, device)
+                kw.update(with_dirs=False, ckpt_every=every, fbot_in=fbot)
+                out, ms = timed(wavefront.wavefront_strip, *args, gap,
+                                n_ckpt, m, 0, k, **kw)
+                want, plain_ms = timed(wavefront.wavefront_strip_plain,
+                                       *args, gap, n_ckpt, m, 0, k, **kw)
+                # Every output, each checkpoint entry of H and E included
+                # (0 where a slot does not reach the column).
+                err = max_abs_err(out, want)
+                check(err == 0 and out[0] is None and out[6] is None
+                      and out[8] is not None,
+                      f"K1 affine score-only {tag}: max_abs_err {err}")
+                del want
+                errs["K1-affine-ckpt"] = max(errs["K1-affine-ckpt"], err)
+                if rps == 16 and "K1-affine-ckpt" not in plain:
+                    plain["K1-affine-ckpt"] = (
+                        plain_ms, f"{m} x {n_ckpt}, rps {rps}, slots "
+                                  f"{slots}, checkpoints every {every}, "
+                                  f"{mode}")
+                log(f"K1 affine score-only, checkpoints every {every}, "
+                    f"{tag}: exact ({out[5].shape[0] // rps} columns of H "
+                    f"and E; kernel {ms:.1f} ms, plain {plain_ms:.0f} ms)")
+    # Tiles of real affine phase-1 fills: row 0, column 0, interior.
+    for rps, slots, cols, n, m, cases in AFFINE_TILE_FILLS:
+        rows = rps * slots
+        for k, mode in cases:
+            gap, ext = affine_costs(k, mode)
+            text = rng.integers(0, k, n).astype(np.int32)
+            pattern = rng.integers(0, k, m).astype(np.int32)
+            sm = score_matrix(k)
+            ck = checkpoint.checkpointed_fill(
+                text, pattern, sm, k, gap, gap_extend=ext, ckpt_cols=cols,
+                rps=rps, slots=slots, device=device, **MODES[mode])
+            tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
+            for b, c, where in ((0, 1, "row 0"), (1, 0, "column 0"),
+                                (1, 1, "interior")):
+                args, tkw = tiles.strip_args(b, c)
+                out, ms = timed(wavefront.wavefront_strip, *args, **tkw)
+                want, plain_ms = timed(wavefront.wavefront_strip_plain, *args,
+                                       **tkw)
+                err = max_abs_err(out, want)
+                check(err == 0, f"K1 affine tile {where} {mode} k={k}: "
+                                f"max_abs_err {err}")
+                del want
+                errs["K1-affine-tile"] = max(errs["K1-affine-tile"], err)
+                if where == "interior" and "K1-affine-tile" not in plain:
+                    plain["K1-affine-tile"] = (
+                        plain_ms, f"interior tile ({b}, {c}) of {rows} x "
+                                  f"{tiles.tile_steps} steps of {m} x {n}, "
+                                  f"{mode}, rps {rps}, slots {slots}")
+                i0, j0 = tile_walk_start(out, b, c, rows, cols, slots, n, m,
+                                         mode == "local")
+                werr, moves = compare_affine_walks(
+                    out[0], out[6], rps, i0, j0, mode == "local",
+                    rows + cols + 1, b * rows, c * cols)
+                errs["K2-affine"] = max(errs["K2-affine"], werr)
+                log(f"K1 affine tile ({b}, {c}) in {where:8s} {mode:6s} "
+                    f"k={k:2d} rps={rps} slots={slots}, left columns of H "
+                    f"and E, top rows of H and F: exact (kernel {ms:.1f} "
+                    f"ms, plain {plain_ms:.0f} ms); K2 from ({i0}, {j0}) in "
+                    f"states 0-2 and with 64 moves: exact, {moves} moves")
+    return errs, plain
+
+
+def affine_ckpt_cases():
+    """Phase 14's checkpoint-engine alignments: (pair index, mode) ->
+    (text, pattern, matrix, k, open, extend)."""
+    cases = {}
+    for idx, argv in enumerate(AFFINE_CKPT_PAIRS):
+        request = read_request(argv)
+        k = request.alphabet_size
+        for mode in MODES:
+            cases[idx, mode] = (
+                np.asarray(request.text, dtype=np.int32),
+                np.asarray(request.pattern, dtype=np.int32),
+                layout.pack_score_matrix(request.score_matrix, k), k,
+                request.gap_penalty, request.gap_extend)
+    return cases
+
+
+def affine_ckpt_oracle(cases):
+    return {key: bindings.oracle_align_affine(ALGO[key[1]], *case)
+            for key, case in cases.items()}
+
+
+def phase_affine_main_path(oracle_outputs, cases, oracle, device="cuda"):
+    """Phase 14: affine -g in process against the -c subprocess outputs
+    (the direct route), then checkpointed_align(gap_extend=...) at a
+    forced small geometry against oracle_align_affine.  Returns the
+    launches of the two parts."""
+    reset_launches()
+    direct_counts = {"K1": 0, "K2": 0}
+    for argv, want in zip(AFFINE_MAIN_PATH, oracle_outputs):
+        before = launches()
+        rc, out = run_cli(["-g", *argv])
+        delta = {kid: v - before[kid] for kid, v in launches().items()}
+        rc_c, out_c, err_c = want()
+        check(rc == 0 and rc_c == 0, f"{argv}: rc -g {rc}, -c {rc_c} "
+                                     f"{err_c}")
+        check(out == out_c, f"{argv}: -g output differs from -c")
+        check(delta == {"K1": 1, "K2": 1}, f"{argv}: launches {delta}, not "
+                                           f"the direct route")
+        for kid in delta:
+            direct_counts[kid] += delta[kid]
+        score = out.rstrip("\n").rsplit("\t", 1)[-1]
+        log(f"-g {' '.join(argv)}: direct route, launches {delta}, Score "
+            f"{score}, byte-identical to -c")
+
+    expected = oracle()
+    reset_launches()
+    geom = AFFINE_CKPT_GEOMETRY
+    with plain_versions_forbidden(PAIR_PLAIN):
+        for key, (text, pattern, sm, k, gap, ext) in cases.items():
+            mode = key[1]
+            before = launches()
+            t0 = time.time()
+            score, bi, bj, at, ap, st, sp = checkpoint.checkpointed_align(
+                text, pattern, sm, k, gap, gap_extend=ext, device=device,
+                **geom, **MODES[mode])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            delta = {kid: v - before[kid] for kid, v in launches().items()}
+            wat, wap, wst, wsp, wscore = expected[key]
+            check(score == wscore and (st, sp) == (wst, wsp)
+                  and np.array_equal(at, wat) and np.array_equal(ap, wap),
+                  f"affine checkpoint engine {AFFINE_CKPT_PAIRS[key[0]]} "
+                  f"{mode}: differs from oracle_align_affine")
+            strips = -(-len(pattern) // (geom["rps"] * geom["slots"]))
+            check(delta["K2"] >= 2 and delta["K1"] == strips + delta["K2"],
+                  f"affine checkpoint engine {mode}: launches {delta}, "
+                  f"{strips} strips")
+            log(f"affine checkpoint engine {len(pattern)} x {len(text)} "
+                f"{mode:6s} k={k:2d} open {gap} extend {ext} {geom}: "
+                f"{wall:.2f} s, Score {score}, {strips} strips, "
+                f"{delta['K2']} path tiles, launches {delta}; "
+                f"byte-identical to oracle_align_affine")
+    return direct_counts, launches()
+
+
+def rescore_affine(aligned_text, aligned_pattern, alphabet, sm, gap, ext):
+    """Affine score of an alignment: a run, a maximal stretch of gaps in
+    one row, costs gap + (L-1)*ext."""
+    table = np.full(256, -1, dtype=np.int64)
+    for idx, letter in enumerate(alphabet):
+        table[ord(letter)] = idx
+    a = table[np.frombuffer(aligned_text.encode(), dtype=np.uint8)]
+    b = table[np.frombuffer(aligned_pattern.encode(), dtype=np.uint8)]
+    check((a >= 0).all() and (b >= 0).all(), "unknown letter in the output")
+    k = len(alphabet) - 1
+    gap_a, gap_b = a == k, b == k
+    check(not (gap_a & gap_b).any(), "a column of two gaps")
+    score = int(sm[a[~(gap_a | gap_b)], b[~(gap_a | gap_b)]].sum())
+    for g in (gap_a, gap_b):
+        runs = int((g & ~np.concatenate([[False], g[:-1]])).sum())
+        score -= gap * runs + ext * (int(g.sum()) - runs)
+    return score
+
+
+def affine_cli_run(argv, oracle_score):
+    """-g on a full-width pair with phase 15's costs: (wall, counts,
+    peak bytes, score, columns, request); the score checked against the
+    oracle's score-only fill and the rescored alignment."""
+    request = read_request(["-g", *DNA_AFFINE, *argv])
+    sm = layout.pack_score_matrix(request.score_matrix,
+                                  request.alphabet_size)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with plain_versions_forbidden(PAIR_PLAIN):
+        t0 = time.time()
+        rc, out = run_cli(["-g", *DNA_AFFINE, *argv])
+        wall = time.time() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"-g {argv}: rc {rc}")
+    score = int(out.rstrip("\n").rsplit("\t", 1)[-1])
+    aligned_text, aligned_pattern = parse_alignment(out)
+    rescored = rescore_affine(aligned_text, aligned_pattern, request.alphabet,
+                              sm, request.gap_penalty, request.gap_extend)
+    expected = oracle_score()
+    check(score == expected == rescored,
+          f"affine {argv}: -g Score {score}, oracle {expected}, rescored "
+          f"{rescored}")
+    return wall, counts, peak, score, len(aligned_text), request
+
+
+def phase_affine_full_width(direct_score, long_score, device="cuda"):
+    """Phase 15: affine -g at full width on the direct route and through
+    the checkpoint engine, then each affine kernel's launch alone timed at
+    its full-width shape."""
+    # The direct route: two word planes of the 280,482 x 48,632 pair.
+    wall, counts, peak, score, columns, request = affine_cli_run(
+        FULL_WIDTH, direct_score)
+    text = np.asarray(request.text, dtype=np.int32)
+    pattern = np.asarray(request.pattern, dtype=np.int32)
+    n, m, k = len(text), len(pattern), request.alphabet_size
+    gap, ext = request.gap_penalty, request.gap_extend
+    rps, slots = direct._direct_geometry(m)
+    check(direct.fits_direct(n, m, affine=True)
+          and counts == {"K1": 1, "K2": 1},
+          f"affine full width: launches {counts}, not the direct route")
+    log(f"affine full width {m} x {n} (rps {rps}, slots {slots}, open {gap} "
+        f"extend {ext}): -g wall {wall:.2f} s, Score {score} == oracle "
+        f"score-only fill == rescored alignment of {columns} columns; "
+        f"launches {counts}; max_memory_allocated {peak} B")
+    result = {"direct_wall_s": wall, "direct_peak_bytes": peak,
+              "direct_counts": counts}
+
+    sm = layout.pack_score_matrix(request.score_matrix, k)
+    ts, pat, sm_dev = direct.strip_inputs(text, pattern, sm, k, rps, slots,
+                                          device)
+    bottom = layout.top_row(ts.numel(), gap, False, device, ext=ext)
+    fbot = torch.full_like(bottom, wavefront.NEG_HALF)
+    launch, k1_out = wavefront.kernel_launch(
+        ts, bottom, pat, sm_dev, gap, n, m, 0, k, False, rps, 0, slots, False,
+        None, affine=True, ext=ext, fbot_in=fbot)
+    _, k1_ms = cuda_ms(launch)
+    max_moves = -(-(n + m + 1) // 16) * 16
+    launch, (mv, res) = walk.kernel_launch(k1_out[0], rps, 0, 0, m, n, False,
+                                           max_moves, k1_out[6], 0)
+    _, k2_ms = cuda_ms(launch)
+    direct_moves = int(res[0])
+    log(f"affine full width: K1 with words {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms "
+        f"({direct_moves} moves), each launch alone, CUDA events")
+    steps = ts.numel()
+    cells = n * m
+    k1_bytes = (4 * (3 * steps + rps * slots + k * k)       # inputs
+                + cells // 2                                # two 2-bit planes
+                + 4 * (2 * steps + 2 * rps * slots + slots))
+    k2_bytes = 8 * direct_moves + 4 * -(-direct_moves // 16) + 4 * 5
+    result["K1-affine"] = bound(k1_bytes, cells * K1_AFFINE_OPS_PER_CELL) | {
+        "ms": k1_ms, "shape": f"{m} x {n}, rps {rps}, slots {slots}, global"}
+    # Free the two word planes (K2's launch holds them too) before the
+    # long pair's peak is read.
+    del launch, k1_out, mv, res
+
+    # The checkpoint engine: the long pair, both sequences past a strip.
+    seen = {}
+    real_fill = checkpoint.checkpointed_fill
+    real_traceback = checkpoint.checkpointed_traceback
+
+    def fill(*args, **kwargs):
+        t0 = time.time()
+        seen["ck"] = real_fill(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["phase1_s"] = time.time() - t0
+        return seen["ck"]
+
+    def traceback(*args, **kwargs):
+        t0 = time.time()
+        out = real_traceback(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["phase2_s"] = time.time() - t0
+        return out
+
+    checkpoint.checkpointed_fill = fill
+    checkpoint.checkpointed_traceback = traceback
+    try:
+        wall, counts, peak, score, columns, request = affine_cli_run(
+            LONG_PAIR, long_score)
+    finally:
+        checkpoint.checkpointed_fill = real_fill
+        checkpoint.checkpointed_traceback = real_traceback
+    text = np.asarray(request.text, dtype=np.int32)
+    pattern = np.asarray(request.pattern, dtype=np.int32)
+    n, m, k = len(text), len(pattern), request.alphabet_size
+    sm = layout.pack_score_matrix(request.score_matrix, k)
+    rps, slots = checkpoint._pick_geometry(m, None, None)
+    rows, cols = rps * slots, checkpoint.DEFAULT_CKPT_COLS
+    strips = -(-m // rows)
+    tiles_crossed = counts["K2"]
+    check(not direct.fits_direct(n, m, affine=True) and tiles_crossed >= 1
+          and counts["K1"] == strips + tiles_crossed,
+          f"affine long pair: launches {counts}, {strips} strips")
+    log(f"affine long pair {m} x {n} (rps {rps}, slots {slots}, {cols} "
+        f"columns a tile, open {gap} extend {ext}): -g wall {wall:.2f} s, "
+        f"phase 1 {seen['phase1_s']:.2f} s ({strips} strips), phase 2 "
+        f"{seen['phase2_s']:.2f} s ({tiles_crossed} path tiles), Score "
+        f"{score} == oracle score-only fill == rescored alignment of "
+        f"{columns} columns; launches {counts}; max_memory_allocated {peak} "
+        f"B")
+    result.update(long_wall_s=wall, long_phase1_s=seen["phase1_s"],
+                  long_phase2_s=seen["phase2_s"], long_strips=strips,
+                  long_tiles=tiles_crossed, long_peak_bytes=peak,
+                  long_counts=counts)
+
+    # One phase-1 strip (strip 1, below strip 0's bottom rows of H and F).
+    ck = seen.pop("ck")
+    steps = layout.steps_padded(n, slots)
+    pat_pad = np.zeros(strips * rows, dtype=np.int32)
+    pat_pad[:m] = pattern
+    launch, strip_out = wavefront.kernel_launch(
+        torch.as_tensor(layout.text_steps(text, steps)).to(device),
+        ck.boundaries[0][:steps].reshape(-1, layout.STEPS),
+        torch.as_tensor(layout.pattern_slots(pat_pad[rows:2 * rows], rps,
+                                             slots)).to(device),
+        torch.as_tensor(sm).to(device), gap, n, m, rows, k, False, rps, cols,
+        slots, False, None, affine=True, ext=ext,
+        fbot_in=ck.boundaries_f[0][:steps].reshape(-1, layout.STEPS))
+    _, ckpt_ms = cuda_ms(launch)
+
+    def as_cols(x):
+        return x.reshape(-1, rps, slots).transpose(1, 2).reshape(-1, rows)
+
+    check(torch.equal(as_cols(strip_out[5]), ck.colvals[1])
+          and torch.equal(as_cols(strip_out[8]), ck.colvals_e[1])
+          and torch.equal(strip_out[1].reshape(-1)[slots - 1:],
+                          ck.boundaries[1][:steps - slots + 1])
+          and torch.equal(strip_out[7].reshape(-1)[slots - 1:],
+                          ck.boundaries_f[1][:steps - slots + 1]),
+          "affine long pair: strip 1 differs from the run's own fill")
+    del strip_out
+
+    # One full-size interior tile (strip 1, column tile 2), re-filled from
+    # the run's boundaries; K2 from its middle, in state 0.
+    tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
+    b, c = 1, 2
+    targs, tkw = tiles.strip_args(b, c)
+    launch, tile_out = wavefront.kernel_launch(
+        *targs, False, rps, 0, slots, False, tkw["left_in"], affine=True,
+        ext=ext, fbot_in=tkw["fbot_in"], left_e=tkw["left_e"])
+    _, tile_ms = cuda_ms(launch)
+    i0, j0 = b * rows + rows // 2, c * cols + cols // 2
+    max_moves = rows + cols + 1
+    launch, (mv, res) = walk.kernel_launch(tile_out[0], rps, b * rows,
+                                           c * cols, i0, j0, False, max_moves,
+                                           tile_out[6], 0)
+    _, walk_ms = cuda_ms(launch)
+    werr, wres = compare_walk(tile_out[0], rps, i0, j0, False, max_moves,
+                              b * rows, c * cols, tile_out[6], 0)
+    check(werr == 0 and [int(x) for x in res.cpu()] == wres,
+          f"affine long pair: K2 in the tile max_abs_err {werr}")
+    window = slice(slots - 1, slots - 1 + cols)
+    check(torch.equal(tile_out[1].reshape(-1)[window],
+                      ck.boundaries[b][c * cols:(c + 1) * cols])
+          and torch.equal(tile_out[7].reshape(-1)[window],
+                          ck.boundaries_f[b][c * cols:(c + 1) * cols]),
+          "affine long pair: the tile's bottom rows differ from phase 1's")
+    log(f"affine long pair: one phase-1 strip ({rows} x {steps} steps) K1 "
+        f"score-only {ckpt_ms:.3f} ms, equal to the run's own strip; one "
+        f"path tile ({rows} x {tiles.tile_steps} steps, tile ({b}, {c})) K1 "
+        f"with the left columns and words {tile_ms:.3f} ms, its bottom rows "
+        f"of H and F equal to phase 1's; K2 from ({i0}, {j0}) {walk_ms:.3f} "
+        f"ms ({wres[0]} moves), each launch alone, CUDA events; K2 exact "
+        f"against its plain version there; K1's variants held against "
+        f"theirs at phase 13's shapes (a phase-1 strip of rps 16 x 4096 "
+        f"slots at 8500 letters, tiles of rps 16 x 4096 slots at 8192 "
+        f"columns)")
+    real_cells = rows * n
+    tile_cells = min(rows, m - b * rows) * min(cols, n - c * cols)
+    num_ckpts = ck.colvals[1].shape[0]
+    result["K1-affine-ckpt"] = bound(
+        strip_bytes(steps, rps, slots, k, 2 * num_ckpts) + 8 * steps,
+        real_cells * K1_AFFINE_SCORE_OPS_PER_CELL) | {
+        "ms": ckpt_ms, "shape": f"one strip of {rows} x {steps} steps of "
+                                f"{m} x {n}, checkpoints every {cols}, "
+                                f"global"}
+    result["K1-affine-tile"] = bound(
+        strip_bytes(tiles.tile_steps, rps, slots, k, left=True, words=True)
+        + 8 * tiles.tile_steps + 4 * (rows + slots)
+        + tiles.tile_steps * rows // 4,
+        tile_cells * K1_AFFINE_OPS_PER_CELL) | {
+        "ms": tile_ms, "shape": f"one tile of {rows} x {tiles.tile_steps} "
+                                f"steps of {m} x {n}, left columns and "
+                                f"words, global"}
+    result["K2-affine"] = bound(k2_bytes, direct_moves
+                                * K2_AFFINE_OPS_PER_MOVE) | {
+        "ms": k2_ms, "shape": f"{direct_moves} moves at full width "
+                              f"(tile: {walk_ms:.3f} ms for {wres[0]} "
+                              f"moves)"}
+    return result
 
 
 def bound(nbytes, ops):
@@ -1288,6 +1943,16 @@ def run(procs):
                                      long_pair.alphabet_size),
             long_pair.alphabet_size, long_pair.gap_penalty,
             long_pair.gap_penalty)[0])
+    # And the affine score-only fills of phase 15's two pairs.
+    affine_scores = {}
+    for name, argv in (("direct", FULL_WIDTH), ("long", LONG_PAIR)):
+        req = read_request([*DNA_AFFINE, *argv])
+        affine_scores[name] = in_thread(
+            lambda req=req: bindings.oracle_fill_affine(
+                0, req.text, req.pattern,
+                layout.pack_score_matrix(req.score_matrix,
+                                         req.alphabet_size),
+                req.alphabet_size, req.gap_penalty, req.gap_extend)[0])
     log(f"build: {time.time() - t_start:.1f} s "
         f"({', '.join(sorted(kernels))} and the native oracle)")
     for path in kernels.values():
@@ -1322,6 +1987,10 @@ def run(procs):
                               DNA_5_4, 4, 5) for i in align_data[2]])
     ck_cases = ckpt_cases()
     ck_expected = in_thread(ckpt_oracle, ck_cases)
+    affine_outputs = [procs.start(port_cli("-c", argv))
+                      for argv in AFFINE_MAIN_PATH]
+    aff_cases = affine_ckpt_cases()
+    aff_expected = in_thread(affine_ckpt_oracle, aff_cases)
 
     t0 = time.time()
     k1_err, k2_err = phase_kernels()
@@ -1368,6 +2037,20 @@ def run(procs):
     lp = phase_long_pair(long_score)
     log(f"phase 12 (checkpoint engine, full width): "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    aff_errs, aff_plain = phase_affine_kernels()
+    log(f"phase 13 (affine K1, K2 against their plain versions): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    aff_direct, aff_ck = phase_affine_main_path(affine_outputs, aff_cases,
+                                                aff_expected)
+    log(f"phase 14 (affine main path): {time.time() - t0:.1f} s, launches "
+        f"direct {json.dumps(aff_direct)}, checkpoint engine "
+        f"{json.dumps(aff_ck)}")
+    t0 = time.time()
+    af = phase_affine_full_width(affine_scores["direct"],
+                                 affine_scores["long"])
+    log(f"phase 15 (affine, full width): {time.time() - t0:.1f} s")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
     # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint
@@ -1381,6 +2064,14 @@ def run(procs):
         "K1-ckpt": ck_counts["K1"] + lp["counts"]["K1"] - tiles,
         "K1-tile": tiles,
     }
+    aff_tiles = aff_ck["K2"] + af["long_counts"]["K2"]
+    pair_launches.update({
+        "K1-affine": aff_direct["K1"] + af["direct_counts"]["K1"],
+        "K2-affine": (aff_direct["K2"] + af["direct_counts"]["K2"]
+                      + aff_tiles),
+        "K1-affine-ckpt": aff_ck["K1"] + af["long_counts"]["K1"] - aff_tiles,
+        "K1-affine-tile": aff_tiles,
+    })
     summary = []
     for name, kid, replaces, row, err in (
         ("K1 wavefront_strip", "K1", "seqalign_tpu/ops/wavefront.py:71",
@@ -1392,9 +2083,25 @@ def run(procs):
          ck_k1_err),
         ("K1-tile wavefront_strip (left column, words)", "K1-tile",
          "seqalign_tpu/ops/wavefront.py:71", lp["K1-tile"], ck_k1_err),
+    ) + tuple(
+        (name, kid, replaces,
+         af[kid] | dict(zip(("plain_ms", "plain_shape"), aff_plain[kid]),
+                        err=0),
+         aff_errs[kid])
+        for name, kid, replaces in (
+            ("K1-affine wavefront_strip (affine, words)", "K1-affine",
+             "seqalign_tpu/ops/wavefront.py:71"),
+            ("K1-affine-ckpt wavefront_strip (affine, score-only, "
+             "column checkpoints)", "K1-affine-ckpt",
+             "seqalign_tpu/ops/wavefront.py:71"),
+            ("K1-affine-tile wavefront_strip (affine, left columns, words)",
+             "K1-affine-tile", "seqalign_tpu/ops/wavefront.py:71"),
+            ("K2-affine walk_skewed_window (three-state walk)", "K2-affine",
+             "seqalign_tpu/ops/pallas_walk.py:37"),
+        )
     ):
         err = max(row["err"], err)
-        source = ("seqalign_torch/csrc/walk.cu" if kid == "K2"
+        source = ("seqalign_torch/csrc/walk.cu" if kid.startswith("K2")
                   else "seqalign_torch/csrc/wavefront.cu")
         summary.append({
             "name": name, "route": "cuda", "source": source,
@@ -1403,6 +2110,7 @@ def run(procs):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"],
+            "plain_shape": row.get("plain_shape", row["shape"]),
         })
     for name, source, replaces, row, full_counts in (
         ("K3-score batch_score", "seqalign_torch/csrc/interpair.cu",
@@ -1434,6 +2142,11 @@ def run(procs):
         key: lp[key] for key in ("wall_s", "phase1_s", "phase2_s", "strips",
                                  "tiles", "peak_bytes", "tile_host_ms",
                                  "readback_ms", "phase2_rest_ms")}}))
+    log(json.dumps({"affine": {
+        key: af[key] for key in ("direct_wall_s", "direct_peak_bytes",
+                                 "long_wall_s", "long_phase1_s",
+                                 "long_phase2_s", "long_strips", "long_tiles",
+                                 "long_peak_bytes")}}))
     log(f"total: {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

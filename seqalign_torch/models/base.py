@@ -11,12 +11,6 @@ from .. import config
 from ..native import bindings
 from ..ops import checkpoint, direct, layout, wavefront
 
-AFFINE_NOT_PORTED = (
-    "affine gaps (--gap-extend) need the affine engine, which the GPU "
-    "package does not have yet; use -c"
-)
-
-
 @dataclasses.dataclass
 class AlignmentResult:
     """Engine-level alignment result (alphabet indices, gap == K)."""
@@ -30,19 +24,25 @@ class AlignmentResult:
 
 class PairAligner:
     """Base: one sequence pair through the wavefront route, the direct
-    route or the checkpoint engine, linear gaps only."""
+    route or the checkpoint engine."""
 
     local: bool = False
 
     def align(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
               gap_extend=None, device=None):
-        """Align on ``device`` (default ``config.device()``).  Raises
-        ValueError for what this package cannot run yet: affine gaps."""
+        """Align on ``device`` (default ``config.device()``).  Affine
+        (Gotoh) gap costs with ``gap_extend`` (``gap_penalty`` is then the
+        open cost) take the direct route or the checkpoint engine: the
+        wavefront route's native traceback is linear."""
+        device = device or config.device()
         if gap_extend is not None:
-            raise ValueError(AFFINE_NOT_PORTED)
+            return self._align_long(
+                np.asarray(text, dtype=np.int32),
+                np.asarray(pattern, dtype=np.int32), score_matrix,
+                alphabet_size, gap_penalty, device, gap_extend=gap_extend,
+            )
         return self._align_wavefront(
-            text, pattern, score_matrix, alphabet_size, gap_penalty,
-            device or config.device(),
+            text, pattern, score_matrix, alphabet_size, gap_penalty, device,
         )
 
     def _align_wavefront(self, text, pattern, score_matrix, alphabet_size,
@@ -81,42 +81,47 @@ class PairAligner:
                                start_p, score)
 
     def _align_long(self, text, pattern, score_matrix, alphabet_size,
-                    gap_penalty, device, semi: bool = False):
+                    gap_penalty, device, semi: bool = False, gap_extend=None):
         """The direct route when the pair fits it, else the checkpoint
         engine.  A direct run that runs out of device memory (the budget
         assumes a card of its own) is retried on the checkpoint engine, on
         the same device; any other error propagates."""
-        if direct.fits_direct(len(text), len(pattern)):
+        n, m = len(text), len(pattern)
+        if direct.fits_direct(n, m, affine=gap_extend is not None):
             try:
                 return self._align_direct(text, pattern, score_matrix,
                                           alphabet_size, gap_penalty, device,
-                                          semi=semi)
+                                          semi=semi, gap_extend=gap_extend)
             except torch.cuda.OutOfMemoryError:
                 pass  # retried below, once the failed run's tensors are freed
         return self._align_checkpoint(text, pattern, score_matrix,
                                       alphabet_size, gap_penalty, device,
-                                      semi=semi)
+                                      semi=semi, gap_extend=gap_extend)
 
     def _align_direct(self, text, pattern, score_matrix, alphabet_size,
-                      gap_penalty, device, semi: bool = False):
+                      gap_penalty, device, semi: bool = False,
+                      gap_extend=None):
         """Fill, best-cell merge and walk on the device (ops/direct.py)."""
         score, _, _, aligned_text, aligned_pattern, start_t, start_p = (
             direct.direct_align(
                 text, pattern, score_matrix, alphabet_size, gap_penalty,
-                local=self.local, semi=semi, device=device,
+                local=self.local, semi=semi, gap_extend=gap_extend,
+                device=device,
             )
         )
         return AlignmentResult(aligned_text, aligned_pattern, start_t,
                                start_p, score)
 
     def _align_checkpoint(self, text, pattern, score_matrix, alphabet_size,
-                          gap_penalty, device, semi: bool = False):
+                          gap_penalty, device, semi: bool = False,
+                          gap_extend=None):
         """Boundary-checkpoint fill and path-tile traceback on the device
         (ops/checkpoint.py), for pairs of any length."""
         score, _, _, aligned_text, aligned_pattern, start_t, start_p = (
             checkpoint.checkpointed_align(
                 text, pattern, score_matrix, alphabet_size, gap_penalty,
-                local=self.local, semi=semi, device=device,
+                local=self.local, semi=semi, gap_extend=gap_extend,
+                device=device,
             )
         )
         return AlignmentResult(aligned_text, aligned_pattern, start_t,

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import config
-from .base import AFFINE_NOT_PORTED, PairAligner
+from .base import PairAligner
 
 
 class SemiGlobal(PairAligner):
@@ -17,11 +17,11 @@ class SemiGlobal(PairAligner):
 
     def align(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
               gap_extend=None, device=None):
-        if gap_extend is not None:
-            raise ValueError(AFFINE_NOT_PORTED)
+        # gap_extend: affine (Gotoh) fit, on the same two routes.
         return self._align_long(
             np.asarray(text, dtype=np.int32),
             np.asarray(pattern, dtype=np.int32),
             score_matrix, alphabet_size,
             gap_penalty, device or config.device(), semi=True,
+            gap_extend=gap_extend,
         )

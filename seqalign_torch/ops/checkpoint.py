@@ -17,7 +17,10 @@ crosses.
   host, where the native emitter replays them.
 
 The directions are the ones the direct route would store, bit for bit,
-so the alignment is byte-identical to the oracle's.
+so the alignment is byte-identical to the oracle's.  Affine (Gotoh)
+fills keep two more pieces of boundary state, the E column at each
+checkpoint and each strip's bottom row of F; a tile's re-fill starts
+from them, and K2 carries its gap state from one tile to the next.
 
 The tile loop runs on the host.  The JAX package runs it as one
 ``lax.while_loop`` dispatch, because a host round trip through the TPU's
@@ -39,6 +42,7 @@ import torch
 
 from ..native import bindings
 from . import layout, wavefront
+from .traceback import emit_moves_affine
 from .walk import unpack_moves, walk_skewed_window
 
 _LEFT, _TOP = 0, 2
@@ -64,13 +68,16 @@ def _pick_geometry(m: int, rps, slots):
 @dataclasses.dataclass
 class CheckpointedFill:
     """Score and tile boundaries of a phase-1 fill (the JAX class's
-    fields and layouts, linear gaps).
+    fields and layouts).
 
     colvals[b]: (num_ckpts, rows) int32 tensor — S[i, (q+1)*ckpt_cols]
       for the rows of strip b (row i = b*rows + ri + 1 at index ri).
     boundaries[b]: (steps_pad,) int32 tensor — S[(b+1)*rows, j] at
       index j-1 (zeros in the last slots-1 entries, past the strip's
       stream; ``Tiles`` pads it further for the last column tile).
+    Affine fills (gap_extend set) also keep colvals_e and boundaries_f in
+    the same layouts: the E state's checkpoint columns and the F state's
+    bottom rows.
     """
 
     score: int
@@ -86,15 +93,20 @@ class CheckpointedFill:
     gap: int
     local: bool
     semi: bool
+    gap_extend: int | None = None
+    colvals_e: list | None = None
+    boundaries_f: list | None = None
 
 
 def checkpointed_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
                       local: bool = False, semi: bool = False,
+                      gap_extend: int | None = None,
                       ckpt_cols: int = DEFAULT_CKPT_COLS,
                       rps: int | None = None, slots: int | None = None,
                       device="cuda") -> CheckpointedFill:
     """Phase 1 on ``device``: K1 score-only with column checkpoints over
-    every strip, the boundaries kept on the device.
+    every strip, the boundaries kept on the device; affine (Gotoh) gap
+    costs with ``gap_extend``, ``gap`` then the open cost.
 
     ``ckpt_cols``, ``rps`` and ``slots`` are the JAX signature's; the
     models pass none of them (the defaults and ``_pick_geometry``), the
@@ -115,30 +127,45 @@ def checkpointed_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
     ts = torch.as_tensor(layout.text_steps(text_np, steps_pad)).to(device)
     pat_pad = np.zeros(num_strips * rows, dtype=np.int32)
     pat_pad[:m] = pattern_np
-    bottom = layout.top_row(steps_pad, gap, local or semi, device)
+    bottom = layout.top_row(steps_pad, gap, local or semi, device,
+                            ext=gap_extend)
     zeros = torch.zeros(slots - 1, dtype=torch.int32, device=device)
+    affine = gap_extend is not None
+    fbottom = torch.full_like(bottom, wavefront.NEG_HALF) if affine else None
+
+    def to_cols(ckpts):
+        # (num_ckpts*rps, slots) -> (num_ckpts, rows), row ri = rps*slot+r.
+        return (ckpts.reshape(-1, rps, slots).transpose(1, 2)
+                .reshape(-1, rows).contiguous())
+
+    def to_boundary(stream):
+        # Step t of the stream is S[i0+rows, t-slots+2]; index j-1 of the
+        # boundary holds S[i0+rows, j], and step t of the next strip's top
+        # row S[i0+rows, t+1].
+        return torch.cat([stream.reshape(-1)[slots - 1:], zeros])
 
     colvals, boundaries, trackers = [], [], []
+    colvals_e, boundaries_f = [], []
     for b in range(num_strips):
         i0 = b * rows
         pat_slots = torch.as_tensor(
             layout.pattern_slots(pat_pad[i0:i0 + rows], rps, slots)
         ).to(device)
-        _, bot_out, rowmax, argj, snap, ckpts = wavefront.wavefront_strip(
+        outs = wavefront.wavefront_strip(
             ts, bottom, pat_slots, sm, gap, n, m, i0, k_alpha, local=local,
             with_dirs=False, rps=rps, ckpt_every=ckpt_cols, slots=slots,
-            semi=semi,
+            semi=semi, affine=affine, ext=gap_extend or 0, fbot_in=fbottom,
         )
-        # (num_ckpts*rps, slots) -> (num_ckpts, rows), row ri = rps*slot+r.
-        colvals.append(ckpts.reshape(-1, rps, slots).transpose(1, 2)
-                       .reshape(-1, rows).contiguous())
+        _, bot_out, rowmax, argj, snap, ckpts = outs[:6]
+        colvals.append(to_cols(ckpts))
         trackers.append((rowmax, argj, snap))
-        # Step t of the stream is S[i0+rows, t-slots+2]; index j-1 of the
-        # boundary holds S[i0+rows, j], and step t of the next strip's top
-        # row S[i0+rows, t+1].
-        boundary = torch.cat([bot_out.reshape(-1)[slots - 1:], zeros])
-        boundaries.append(boundary)
-        bottom = boundary.reshape(num_blocks, layout.STEPS)
+        boundaries.append(to_boundary(bot_out))
+        bottom = boundaries[-1].reshape(num_blocks, layout.STEPS)
+        if affine:
+            # The F row below the strip is the next strip's top row of F.
+            colvals_e.append(to_cols(outs[8]))
+            boundaries_f.append(to_boundary(outs[7]))
+            fbottom = boundaries_f[-1].reshape(num_blocks, layout.STEPS)
 
     if local:
         score, bi, bj = wavefront.merge_local_best(
@@ -159,19 +186,20 @@ def checkpointed_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
         score=score, best_i=bi, best_j=bj, colvals=colvals,
         boundaries=boundaries, n=n, m=m, rows=rows, rps=rps,
         ckpt_cols=ckpt_cols, gap=gap, local=local, semi=semi,
+        gap_extend=int(gap_extend) if affine else None,
+        colvals_e=colvals_e if affine else None,
+        boundaries_f=boundaries_f if affine else None,
     )
 
 
 def from_reference_fill(ck, device) -> CheckpointedFill:
     """The port's ``CheckpointedFill`` from the JAX package's, whose
     arrays are given as numpy arrays (or anything ``np.asarray`` takes),
-    on ``device``.  Linear gaps only."""
-    if getattr(ck, "gap_extend", None) is not None:
-        raise ValueError("affine checkpoint fills are not ported")
-
+    on ``device``; an affine fill brings its E columns and F rows."""
     def as_tensor(x):
         return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
 
+    affine = ck.gap_extend is not None
     return CheckpointedFill(
         score=int(ck.score), best_i=int(ck.best_i), best_j=int(ck.best_j),
         colvals=[as_tensor(x) for x in ck.colvals],
@@ -179,6 +207,10 @@ def from_reference_fill(ck, device) -> CheckpointedFill:
         n=int(ck.n), m=int(ck.m), rows=int(ck.rows), rps=int(ck.rps),
         ckpt_cols=int(ck.ckpt_cols), gap=int(ck.gap), local=bool(ck.local),
         semi=bool(ck.semi),
+        gap_extend=int(ck.gap_extend) if affine else None,
+        colvals_e=[as_tensor(x) for x in ck.colvals_e] if affine else None,
+        boundaries_f=([as_tensor(x) for x in ck.boundaries_f] if affine
+                      else None),
     )
 
 
@@ -187,7 +219,8 @@ class Tiles:
     pair can be re-filled: the text, zero-padded to L = (column tiles - 1)
     * ckpt_cols + tile_steps; every strip's pattern slots; the phase-1
     column checkpoints, and the bottom rows zero-padded to (strips, >= L):
-    the pad feeds only cells past column n, which no walk reads."""
+    the pad feeds only cells past column n, which no walk reads.  An
+    affine fill's E columns and F rows likewise."""
 
     def __init__(self, ck: CheckpointedFill, text, pattern, score_matrix,
                  k_alpha: int):
@@ -202,10 +235,18 @@ class Tiles:
         text_pad = np.zeros(l_pad, dtype=np.int32)
         text_pad[:ck.n] = np.asarray(text, dtype=np.int32)
         self.text = torch.as_tensor(text_pad).to(device)
-        self.bounds = torch.stack(ck.boundaries)
-        if self.bounds.shape[1] < l_pad:
-            self.bounds = torch.nn.functional.pad(
-                self.bounds, (0, l_pad - self.bounds.shape[1]))
+
+        def rows_padded(rows):
+            rows = torch.stack(rows)
+            if rows.shape[1] < l_pad:
+                rows = torch.nn.functional.pad(rows,
+                                               (0, l_pad - rows.shape[1]))
+            return rows
+
+        self.bounds = rows_padded(ck.boundaries)
+        self.affine = ck.gap_extend is not None
+        if self.affine:
+            self.bounds_f = rows_padded(ck.boundaries_f)
         pat_pad = np.zeros(num_strips * self.rows, dtype=np.int32)
         pat_pad[:ck.m] = np.asarray(pattern, dtype=np.int32)
         self.patterns = torch.as_tensor(np.stack([
@@ -220,33 +261,46 @@ class Tiles:
         """``wavefront_strip``'s (args, kwargs) that re-fill tile (strip b,
         column tile c) with its direction words: its top row, and its
         left column with the corner from the saved boundaries, or the
-        arithmetic edges in strip 0 and column tile 0."""
+        arithmetic edges in strip 0 and column tile 0; affine, the top
+        row of F and the left column of E besides (NEG_HALF at the DP's
+        edges)."""
         ck, rows, tile_steps = self.ck, self.rows, self.tile_steps
-        gap, local = ck.gap, ck.local
+        gap, ext, local = ck.gap, ck.gap_extend, ck.local
         row_lo, col_lo = b * rows, c * self.cols
         device = self.text.device
         i32 = torch.int32
+
+        def edge(first, count):
+            # The arithmetic boundary values S[0, x] = S[x, 0] for x =
+            # first .. first+count-1 (x >= 1): -gap*x, affine
+            # -(gap + ext*(x-1)).
+            x = first + torch.arange(count, device=device)
+            return (-(gap + ext * (x - 1)) if self.affine
+                    else -gap * x).to(i32)
+
         # Top row S[row_lo, col_lo + t + 1] per sweep step t.
         if b > 0:
             bot = self.bounds[b - 1, col_lo:col_lo + tile_steps]
         elif local or ck.semi:
             bot = torch.zeros(tile_steps, dtype=i32, device=device)
         else:
-            bot = (-gap * (col_lo + torch.arange(1, tile_steps + 1,
-                                                 device=device))).to(i32)
+            bot = edge(col_lo + 1, tile_steps)
         # Left column S[row_lo + ri, col_lo] for ri = 0..rows, the corner
         # (ri = 0) from the bottom row above for an interior tile.
         if c == 0:
-            ri = torch.arange(rows + 1, device=device)
-            lc_full = (torch.zeros(rows + 1, dtype=i32, device=device)
-                       if local else (-gap * (row_lo + ri)).to(i32))
+            if local:
+                lc_full = torch.zeros(rows + 1, dtype=i32, device=device)
+            else:
+                corner = (torch.zeros(1, dtype=i32, device=device)
+                          if row_lo == 0 else edge(row_lo, 1))
+                lc_full = torch.cat([corner, edge(row_lo + 1, rows)])
         else:
             if b > 0:
                 corner = self.bounds[b - 1, col_lo - 1:col_lo]
+            elif local or ck.semi:
+                corner = torch.zeros(1, dtype=i32, device=device)
             else:
-                corner = torch.full(
-                    (1,), 0 if (local or ck.semi) else -gap * col_lo,
-                    dtype=i32, device=device)
+                corner = edge(col_lo, 1)
             lc_full = torch.cat([corner, ck.colvals[b][c - 1]])
         # Semi-global tiles fill with the global recurrence (the modes
         # differ only in the boundaries and the tracking, not read here).
@@ -257,24 +311,37 @@ class Tiles:
         kwargs = dict(local=local, rps=self.rps, slots=self.slots,
                       left_in=wavefront.make_left_input(lc_full, self.rps,
                                                         self.slots))
+        if self.affine:
+            neg = torch.full((max(tile_steps, rows + 1),), wavefront.NEG_HALF,
+                             dtype=i32, device=device)
+            fbot = (self.bounds_f[b - 1, col_lo:col_lo + tile_steps] if b > 0
+                    else neg[:tile_steps])
+            le_full = torch.cat([neg[:1], ck.colvals_e[b][c - 1] if c > 0
+                                 else neg[:rows]])
+            kwargs.update(
+                affine=True, ext=ext, fbot_in=fbot.reshape(-1, layout.STEPS),
+                left_e=wavefront.make_left_input(le_full, self.rps,
+                                                 self.slots))
         return args, kwargs
 
-    def walk(self, i: int, j: int):
+    def walk(self, i: int, j: int, state: int = 0):
         """Re-fill the tile of cell (i, j) with K1 and walk it with K2
-        from there, until the path leaves the tile or ends.  Returns
-        (moves, i, j, done), the moves as a numpy uint8 list."""
+        from there, in gap state ``state`` (affine), until the path
+        leaves the tile or ends.  Returns (moves, i, j, state, done), the
+        moves as a numpy uint8 list."""
         b, c = (i - 1) // self.rows, (j - 1) // self.cols
         args, kwargs = self.strip_args(b, c)
-        dirs = wavefront.wavefront_strip(*args, **kwargs)[0]
+        outs = wavefront.wavefront_strip(*args, **kwargs)
         moves, result = walk_skewed_window(
-            dirs, self.rps, b * self.rows, c * self.cols, i, j, self.ck.local,
-            self.rows + self.cols + 1)
-        count, i2, j2, _, done = result.tolist()
+            outs[0], self.rps, b * self.rows, c * self.cols, i, j,
+            self.ck.local, self.rows + self.cols + 1,
+            words2=outs[6] if self.affine else None, state0=state)
+        count, i2, j2, state2, done = result.tolist()
         if count == 0 and not done:
             raise RuntimeError(f"the walk made no move from ({i}, {j}) in "
                                f"tile ({b}, {c})")
         packed = moves[:-(-count // 16)].cpu().numpy()
-        return unpack_moves(packed, count), i2, j2, bool(done)
+        return unpack_moves(packed, count), i2, j2, state2, bool(done)
 
 
 def checkpointed_traceback(ck: CheckpointedFill, text, pattern,
@@ -302,8 +369,9 @@ def checkpointed_traceback(ck: CheckpointedFill, text, pattern,
         done = False
     start_i, start_j = i, j
     moves_parts = []
+    state = 0  # the affine walk's gap state, carried from tile to tile
     while not done and (local or (i > 0 and j > 0)):
-        mv, i, j, tile_done = tiles.walk(i, j)
+        mv, i, j, state, tile_done = tiles.walk(i, j, state)
         moves_parts.append(mv)
         if local:
             done = tile_done
@@ -319,9 +387,14 @@ def checkpointed_traceback(ck: CheckpointedFill, text, pattern,
             moves_parts.append(np.full(j, _LEFT, np.uint8))
     moves = (np.concatenate(moves_parts) if moves_parts
              else np.zeros(0, np.uint8))
-    at, ap, st, sp = bindings.emit_moves(
-        moves, start_i, start_j, local, text_np, pattern_np, k_alpha
-    )
+    if ck.gap_extend is not None:
+        at, ap, st, sp = emit_moves_affine(
+            moves, start_i, start_j, text_np, pattern_np, k_alpha
+        )
+    else:
+        at, ap, st, sp = bindings.emit_moves(
+            moves, start_i, start_j, local, text_np, pattern_np, k_alpha
+        )
     if ck.semi:
         # Fit offsets: where the pattern lands in the text.
         st, sp = j, 0
@@ -330,12 +403,14 @@ def checkpointed_traceback(ck: CheckpointedFill, text, pattern,
 
 def checkpointed_align(text, pattern, score_matrix, k_alpha: int, gap: int,
                        local: bool = False, semi: bool = False,
+                       gap_extend: int | None = None,
                        ckpt_cols: int = DEFAULT_CKPT_COLS,
                        rps: int | None = None, slots: int | None = None,
                        device="cuda"):
     """Full alignment of a pair of any length on ``device``, in
     O(boundary) device memory plus one tile's words (the geometry
-    keywords as in ``checkpointed_fill``).
+    keywords as in ``checkpointed_fill``); affine (Gotoh) gap costs with
+    ``gap_extend``, ``gap`` then the open cost.
 
     Returns (score, best_i, best_j, aligned_text_idx,
     aligned_pattern_idx, start_text, start_pattern) — byte-identical to
@@ -343,7 +418,8 @@ def checkpointed_align(text, pattern, score_matrix, k_alpha: int, gap: int,
     """
     ck = checkpointed_fill(
         text, pattern, score_matrix, k_alpha, gap, local=local, semi=semi,
-        ckpt_cols=ckpt_cols, rps=rps, slots=slots, device=device,
+        gap_extend=gap_extend, ckpt_cols=ckpt_cols, rps=rps, slots=slots,
+        device=device,
     )
     at, ap, st, sp = checkpointed_traceback(ck, text, pattern, score_matrix,
                                             k_alpha)

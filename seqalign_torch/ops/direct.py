@@ -4,9 +4,11 @@ K1 fills the strip with its direction words in device memory, the best
 cell is merged on the device (row-major first occurrence,
 alignSequenceCPU.cpp:191-192), and K2 walks the path there — only the
 score, the best cell and the 2-bit packed moves come back to the host,
-which replays them through the native emitter.  Pairs whose pattern
-exceeds one strip, or whose words exceed the device budget, take the
-checkpoint engine (``ops/checkpoint.py``).
+which replays them through the native emitter.  Affine (Gotoh) gaps
+add K1's run-bit plane beside the words, which K2's three-state walk
+reads, and the moves replay through ``emit_moves_affine``.  Pairs whose
+pattern exceeds one strip, or whose words exceed the device budget, take
+the checkpoint engine (``ops/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from ..native import bindings
 from . import layout, wavefront
 from .checkpoint import _pick_geometry
+from .traceback import emit_moves_affine
 from .walk import unpack_moves, walk_skewed_window
 
 _LEFT, _TOP = 0, 2
@@ -39,13 +42,15 @@ def _direct_geometry(m: int):
     return rps, slots
 
 
-def fits_direct(n: int, m: int) -> bool:
+def fits_direct(n: int, m: int, affine: bool = False) -> bool:
     rps, slots = _direct_geometry(m)
     if m > rps * slots:
         return False
     if n + m + 1 > MAX_DIRECT_MOVES:
         return False
     dirs_bytes = (layout.steps_padded(n, slots) // 16) * rps * slots * 4
+    if affine:  # the run-bit plane beside the words
+        dirs_bytes *= 2
     return dirs_bytes <= MAX_DIRECT_DIRS_BYTES
 
 
@@ -79,23 +84,32 @@ def best_cell(rowmax, argj, snap, rps: int, slots: int, n: int, m: int,
 
 def direct_fill_walk(text_steps, pattern_slots, score_matrix, gap, n, m,
                      k_alpha: int, local: bool, semi: bool, rps: int,
-                     slots: int, max_moves: int):
+                     slots: int, max_moves: int,
+                     gap_extend: int | None = None):
     """K1 over one strip from row 0, the best-cell merge, and K2 from the
-    best cell, all on the inputs' device.
+    best cell, all on the inputs' device; affine with ``gap_extend``
+    (``gap`` is then the open cost).
 
     Returns (score, best_i, best_j, moves, result): Python ints, then
     the walker's packed moves and (count, i, j, state, done) tensors.
     """
-    bottom = layout.top_row(text_steps.numel(), gap, local or semi,
-                            text_steps.device)
-    dirs, _, rowmax, argj, snap, _ = wavefront.wavefront_strip(
+    device = text_steps.device
+    bottom = layout.top_row(text_steps.numel(), gap, local or semi, device,
+                            ext=gap_extend)
+    affine = gap_extend is not None
+    outs = wavefront.wavefront_strip(
         text_steps, bottom, pattern_slots, score_matrix, gap, n, m, 0,
         k_alpha=k_alpha, local=local, rps=rps, slots=slots, semi=semi,
+        affine=affine, ext=gap_extend or 0,
+        fbot_in=(torch.full_like(bottom, wavefront.NEG_HALF) if affine
+                 else None),
     )
+    dirs, _, rowmax, argj, snap = outs[:5]
     score, bi, bj = best_cell(rowmax, argj, snap, rps, slots, n, m, local,
                               semi)
     moves, result = walk_skewed_window(
         dirs, rps, 0, 0, bi, bj, local, max_moves,
+        words2=outs[6] if affine else None,
     )
     return score, bi, bj, moves, result
 
@@ -117,9 +131,11 @@ def strip_inputs(text, pattern, score_matrix, k_alpha: int, rps: int,
 
 def direct_align(text, pattern, score_matrix, k_alpha: int, gap: int,
                  local: bool = False, semi: bool = False,
+                 gap_extend: int | None = None,
                  rps: int | None = None, slots: int | None = None,
                  device="cuda"):
-    """Full alignment on ``device`` (see the module docstring).
+    """Full alignment on ``device`` (see the module docstring); affine
+    (Gotoh) gap costs with ``gap_extend``, ``gap`` then the open cost.
 
     Returns (score, best_i, best_j, aligned_text_idx,
     aligned_pattern_idx, start_text, start_pattern) — byte-identical to
@@ -141,7 +157,7 @@ def direct_align(text, pattern, score_matrix, k_alpha: int, gap: int,
     score, bi, bj, moves_dev, result = direct_fill_walk(
         *strip_inputs(text_np, pattern_np, sm, k_alpha, rps, slots, device),
         gap, n, m, k_alpha=k_alpha, local=local, semi=semi, rps=rps,
-        slots=slots, max_moves=max_moves,
+        slots=slots, max_moves=max_moves, gap_extend=gap_extend,
     )
     k, i, j, _, _ = (int(x) for x in result.cpu())
     moves = unpack_moves(moves_dev.cpu().numpy(), k)
@@ -154,9 +170,14 @@ def direct_align(text, pattern, score_matrix, k_alpha: int, gap: int,
             moves = np.concatenate([moves, np.full(j, _LEFT, np.uint8)])
     start_i = bi if (local or semi) else m
     start_j = bj if (local or semi) else n
-    at, ap, st, sp = bindings.emit_moves(
-        moves, start_i, start_j, local, text_np, pattern_np, k_alpha
-    )
+    if gap_extend is not None:
+        at, ap, st, sp = emit_moves_affine(
+            moves, start_i, start_j, text_np, pattern_np, k_alpha
+        )
+    else:
+        at, ap, st, sp = bindings.emit_moves(
+            moves, start_i, start_j, local, text_np, pattern_np, k_alpha
+        )
     if semi:
         st, sp = (j if j > 0 else 0), 0
     return score, bi, bj, at, ap, st, sp

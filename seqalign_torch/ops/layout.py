@@ -59,11 +59,16 @@ def text_steps(text: np.ndarray, steps_pad: int) -> np.ndarray:
     return out.reshape(-1, STEPS)
 
 
-def top_row(steps: int, gap: int, zero: bool, device) -> torch.Tensor:
+def top_row(steps: int, gap: int, zero: bool, device,
+            ext: int | None = None) -> torch.Tensor:
     """(steps/STEPS, STEPS) int32 top boundary row H[0, t+1] of strip 0:
-    zeros (local, semi-global) or -gap*(t+1) (global)."""
+    zeros (local, semi-global), -gap*(t+1) (global), or with an affine
+    extend cost ``ext`` -(gap + ext*t) (global; gap the open cost)."""
     if zero:
         row = torch.zeros(steps, dtype=torch.int32, device=device)
+    elif ext is not None:
+        row = (-(gap + ext * torch.arange(steps, device=device))).to(
+            torch.int32)
     else:
         row = (-gap * (torch.arange(steps, device=device) + 1)).to(
             torch.int32)

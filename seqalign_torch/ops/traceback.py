@@ -1,0 +1,39 @@
+"""Replay of an affine (Gotoh) walk's moves into the aligned index arrays
+(the JAX package's ``ops/traceback.py::emit_moves_affine``)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+_LEFT, _TOP = 0, 2
+
+
+def emit_moves_affine(moves: np.ndarray, start_i: int, start_j: int,
+                      text: np.ndarray, pattern: np.ndarray,
+                      gap_index: int):
+    """Replay an affine move list (walk order) into aligned index arrays.
+
+    The affine oracle emits straight from the walk cursor with no clamp
+    quirks (oracle.cpp sa_align_affine): at each move, the text letter is
+    text[j-1] unless the move is TOP, the pattern letter pattern[i-1]
+    unless LEFT; the start offsets are the final (j, i) floored at 0.
+    Returns (aligned_text_idx, aligned_pattern_idx, start_text,
+    start_pattern).
+    """
+    moves = np.asarray(moves, dtype=np.int64)
+    text = np.asarray(text)
+    pattern = np.asarray(pattern)
+    if moves.size == 0:
+        return (np.zeros(0, np.uint8), np.zeros(0, np.uint8),
+                max(start_j, 0), max(start_i, 0))
+    take_t = moves != _TOP
+    take_p = moves != _LEFT
+    j_pos = start_j - np.concatenate([[0], np.cumsum(take_t[:-1])])
+    i_pos = start_i - np.concatenate([[0], np.cumsum(take_p[:-1])])
+    at = np.where(take_t, text[np.maximum(j_pos - 1, 0)],
+                  gap_index).astype(np.uint8)
+    ap = np.where(take_p, pattern[np.maximum(i_pos - 1, 0)],
+                  gap_index).astype(np.uint8)
+    final_j = int(start_j - take_t.sum())
+    final_i = int(start_i - take_p.sum())
+    return at[::-1].copy(), ap[::-1].copy(), max(final_j, 0), max(final_i, 0)

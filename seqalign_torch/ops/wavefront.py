@@ -10,8 +10,9 @@ the native ``sa_traceback_*_skewed`` walkers and K2 read it unchanged.
 
 ``wavefront_strip`` launches the CUDA kernel (``csrc/wavefront.cu``) for
 tensors on a CUDA device and runs ``wavefront_strip_plain`` for tensors
-on the CPU.  Linear gaps only: global, local and semi-global, with the
-direction words or score-only with column checkpoints, and from a given
+on the CPU.  Global, local and semi-global, with linear or affine
+(Gotoh) gap costs; with the direction words (and, affine, the run-bit
+plane ``dirs2``) or score-only with column checkpoints, and from a given
 left boundary column (the checkpoint engine's variants).
 """
 
@@ -30,6 +31,7 @@ ROWS_PER_SLOT = 8      # rows per slot of the wavefront route
 STEPS = layout.STEPS   # sweep steps per block of the streams
 DIR_STEPS_PER_WORD = 16
 NEG_INF = -(1 << 30)
+NEG_HALF = NEG_INF // 2  # affine E/F "minus infinity": survives extends
 RPS_CHOICES = (1, 2, 4, 8, 16)
 
 
@@ -44,7 +46,8 @@ def num_checkpoints(steps: int, ckpt_every: int) -> int:
 
 
 def _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
-           rps, slots, local, semi, with_dirs, ckpt_every, left_in):
+           rps, slots, local, semi, with_dirs, ckpt_every, left_in,
+           affine=False, fbot_in=None, left_e=None):
     if rps not in RPS_CHOICES:
         raise ValueError(f"rps must be one of {RPS_CHOICES}, got {rps}")
     if slots % 128 or not (slots <= 1024 or slots in (2048, 4096)):
@@ -72,6 +75,16 @@ def _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
     }
     if left_in is not None:
         shapes["left_in"] = (left_in, (rps + 1, slots // 128, 128))
+    if affine:
+        if fbot_in is None:
+            raise ValueError("affine fills need fbot_in, the top row of F")
+        if (left_e is None) != (left_in is None):
+            raise ValueError("affine fills take left_e exactly with left_in")
+        shapes["fbot_in"] = (fbot_in, (num_blocks, STEPS))
+        if left_e is not None:
+            shapes["left_e"] = (left_e, (rps + 1, slots // 128, 128))
+    elif fbot_in is not None or left_e is not None:
+        raise ValueError("fbot_in and left_e are affine inputs")
     device = text_steps.device
     for name, (x, shape) in shapes.items():
         if x.device != device:
@@ -89,9 +102,9 @@ def wavefront_strip(text_steps, bottom_in, pattern_slots, score_matrix,
                     gap, n, m, i0, k_alpha: int, local: bool = False,
                     with_dirs: bool = True, rps: int = ROWS_PER_SLOT,
                     ckpt_every: int = 0, slots: int = SLOTS,
-                    semi: bool = False, left_in=None):
-    """Run one (rps*slots)-row strip sweep (the JAX ``wavefront_strip``,
-    linear gaps).
+                    semi: bool = False, left_in=None, affine: bool = False,
+                    ext: int = 0, fbot_in=None, left_e=None):
+    """Run one (rps*slots)-row strip sweep (the JAX ``wavefront_strip``).
 
     Args:
       text_steps: (num_blocks, STEPS) int32 — text[t] per step.
@@ -110,9 +123,17 @@ def wavefront_strip(text_steps, bottom_in, pattern_slots, score_matrix,
         slots/128, 128) left boundary column of ``make_left_input``: the
         strip then fills the columns after an arbitrary column col_lo,
         and j counts from col_lo.
+      affine: Gotoh gap costs, gap the open cost and ``ext`` the extend
+        cost (a run of L gaps costs gap + (L-1)*ext).
+      fbot_in: affine only, (num_blocks, STEPS) int32 — the top row of
+        F (the TOP-run state), NEG_HALF at the DP's row 0.
+      left_e: affine with left_in only, the left column's E (the
+        LEFT-run state) in ``make_left_input``'s layout (entry 0 of each
+        slot unused).
 
-    Returns (dirs, bottom_stream, rowmax, argj, snap, ckpts), int32 on
-    the inputs' device:
+    Returns (dirs, bottom_stream, rowmax, argj, snap, ckpts), and when
+    affine (dirs, bottom_stream, rowmax, argj, snap, ckpts, dirs2,
+    fbot_stream, ckpts_e), int32 on the inputs' device:
       dirs: (num_blocks*STEPS/16*rps, slots/128, 128) skewed words, or
         None without with_dirs;
       bottom_stream: (num_blocks, STEPS) — the last slot's last row
@@ -125,22 +146,30 @@ def wavefront_strip(text_steps, bottom_in, pattern_slots, score_matrix,
       ckpts: None without ckpt_every, else (num_checkpoints*rps,
         slots/128, 128): entry (q*rps + r, slot) holds S[i0 + rps*slot
         + r + 1, (q+1)*ckpt_every], and 0 where the slot does not reach
-        that column within the strip's steps.
+        that column within the strip's steps;
+      dirs2: shaped like dirs, each cell's run bits in its 2 bits (bit 0:
+        extending E strictly beats opening it; bit 1: the same for F),
+        or None without with_dirs;
+      fbot_stream: (num_blocks, STEPS) — the last slot's last-row F;
+      ckpts_e: shaped like ckpts, E at the checkpoint columns, or None.
     """
     _check(text_steps, bottom_in, pattern_slots, score_matrix, k_alpha,
-           rps, slots, local, semi, with_dirs, ckpt_every, left_in)
+           rps, slots, local, semi, with_dirs, ckpt_every, left_in, affine,
+           fbot_in, left_e)
     device = text_steps.device
     if device.type == "cpu":
         return wavefront_strip_plain(
             text_steps, bottom_in, pattern_slots, score_matrix, gap, n, m,
             i0, k_alpha, local=local, with_dirs=with_dirs, rps=rps,
             ckpt_every=ckpt_every, slots=slots, semi=semi, left_in=left_in,
+            affine=affine, ext=ext, fbot_in=fbot_in, left_e=left_e,
         )
     if device.type != "cuda":
         raise ValueError(f"wavefront_strip runs on cuda or cpu, not {device}")
     launch, out = kernel_launch(
         text_steps, bottom_in, pattern_slots, score_matrix, gap, n, m, i0,
-        k_alpha, local, rps, ckpt_every, slots, semi, left_in,
+        k_alpha, local, rps, ckpt_every, slots, semi, left_in, affine=affine,
+        ext=ext, fbot_in=fbot_in, left_e=left_e,
     )
     launch()
     wavefront_strip.launches += 1
@@ -152,7 +181,7 @@ wavefront_strip.launches = 0
 
 def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
                   n, m, i0, k_alpha, local, rps, ckpt_every, slots, semi,
-                  left_in):
+                  left_in, affine=False, ext=0, fbot_in=None, left_e=None):
     """K1 on the inputs' CUDA device, ready to launch: the outputs
     allocated, the checkpoints zeroed; words without ckpt_every, the
     score-only fill with checkpoints with it.  Returns (launch, outputs) with
@@ -164,7 +193,7 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
     num_blocks = text_steps.shape[0]
     steps = num_blocks * STEPS
     srows = slots // 128
-    dirs = ckpts = None
+    dirs = ckpts = dirs2 = fbot_out = ckpts_e = None
     if ckpt_every:
         ckpts = torch.zeros(
             (num_checkpoints(steps, ckpt_every) * rps, srows, 128),
@@ -176,6 +205,10 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
     rowmax = torch.empty((rps, srows, 128), dtype=i32, device=device)
     argj = torch.empty_like(rowmax)
     snap = torch.empty((srows, 128), dtype=i32, device=device)
+    if affine:
+        dirs2 = None if dirs is None else torch.empty_like(dirs)
+        ckpts_e = None if ckpts is None else torch.zeros_like(ckpts)
+        fbot_out = torch.empty_like(bottom_out)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -184,26 +217,30 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = _kernel()(
-                text_steps.data_ptr(), bottom_in.data_ptr(),
+                text_steps.data_ptr(), bottom_in.data_ptr(), ptr(fbot_in),
                 pattern_slots.data_ptr(), score_matrix.data_ptr(),
-                ptr(left_in), ptr(dirs), bottom_out.data_ptr(),
-                rowmax.data_ptr(), argj.data_ptr(), snap.data_ptr(),
-                ptr(ckpts), steps, slots, rps, k_alpha, int(gap), int(n),
-                int(m), int(i0), int(local), int(semi), int(ckpt_every),
-                stream,
+                ptr(left_in), ptr(left_e), ptr(dirs), ptr(dirs2),
+                bottom_out.data_ptr(), ptr(fbot_out), rowmax.data_ptr(),
+                argj.data_ptr(), snap.data_ptr(), ptr(ckpts), ptr(ckpts_e),
+                steps, slots, rps, k_alpha, int(gap), int(ext), int(n),
+                int(m), int(i0), int(local), int(semi), int(affine),
+                int(ckpt_every), stream,
             )
         if rc != 0:
             raise RuntimeError(f"wavefront kernel launch failed: "
                                f"cudaError_t {rc}")
 
-    return launch, (dirs, bottom_out, rowmax, argj, snap, ckpts)
+    out = (dirs, bottom_out, rowmax, argj, snap, ckpts)
+    if affine:
+        out += (dirs2, fbot_out, ckpts_e)
+    return launch, out
 
 
 def _kernel():
     fn = library("wavefront").sa_wavefront_strip
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 11 + [p]
+        fn.argtypes = [p] * 16 + [i] * 13 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -230,12 +267,20 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
                           local: bool = False, with_dirs: bool = True,
                           rps: int = ROWS_PER_SLOT, ckpt_every: int = 0,
                           slots: int = SLOTS, semi: bool = False,
-                          left_in=None):
+                          left_in=None, affine: bool = False, ext: int = 0,
+                          fbot_in=None, left_e=None):
     """Plain PyTorch version of ``wavefront_strip``, on the inputs'
     device, with identical outputs.  Each step updates all slots at once;
     the rps rows of a slot, which chain through the top neighbour, are
-    resolved with one running maximum down the rows:
-    H[r] = max(c[r], H[r-1] - gap) = max_k (c[k] - gap*(r-k))."""
+    resolved with one running maximum down the rows.  Linear:
+    H[r] = max(c[r], H[r-1] - gap) = max_k (c[k] - gap*(r-k)), c the
+    diagonal and LEFT moves.  Affine, F chains instead: with c[r] =
+    max(diag, E, 0 if local) and H[r] = max(c[r], F[r]),
+    F[r] = max(F[r-1] - ext, H[r-1] - gap) = max(F[r-1] - g, c[r-1] - gap)
+    for r >= 1, g = min(ext, gap), so F[r] = max_k (x[k] - g*(r-k)) with
+    x[0] = F[0] = max(F_above - ext, H_above - gap) and x[k] = c[k-1] -
+    gap: integer max and subtraction of a constant commute, so this equals
+    the row-by-row chain exactly."""
     device = text_steps.device
     i32 = torch.int32
     num_blocks = text_steps.shape[0]
@@ -244,9 +289,10 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
     bottom = bottom_in.reshape(-1)
     sub_flat = score_matrix.reshape(-1)
     pat_off = pattern_slots.reshape(rps, slots).to(torch.int64) * k_alpha
-    gap = int(gap)
+    gap, ext = int(gap), int(ext)
     slot = torch.arange(slots, device=device)
-    rows_i = (i0 + rps * slot)[None, :] + torch.arange(
+    ibase = i0 + rps * slot
+    rows_i = ibase[None, :] + torch.arange(
         1, rps + 1, device=device)[:, None]                # (rps, slots)
     if left_in is not None:
         left = left_in.reshape(rps + 1, slots)
@@ -255,10 +301,22 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
     elif local:
         H = torch.zeros((rps, slots), dtype=i32, device=device)
         topsh = torch.zeros(slots, dtype=i32, device=device)
+    elif affine:
+        H = (-(gap + ext * (rows_i - 1))).to(i32)
+        topsh = torch.where(ibase == 0, 0, -(gap + ext * (ibase - 1))).to(i32)
     else:
         H = (-gap * rows_i).to(i32)
-        topsh = (-gap * (i0 + rps * slot)).to(i32)
+        topsh = (-gap * ibase).to(i32)
     ramp = (gap * torch.arange(rps + 1, device=device)).to(i32)[:, None]
+    if affine:
+        E = (left_e.reshape(rps + 1, slots)[1:].clone() if left_e is not None
+             else torch.full((rps, slots), NEG_HALF, dtype=i32,
+                             device=device))
+        flast = torch.full((slots,), NEG_HALF, dtype=i32, device=device)
+        fbottom = fbot_in.reshape(-1)
+        framp = (min(ext, gap) * torch.arange(rps, device=device)).to(
+            i32)[:, None]
+        fstream = torch.empty(steps, dtype=i32, device=device)
     # text_ext[slots + x] = text[x]; zeros stand for "before the text".
     text_ext = torch.cat([torch.zeros(slots, dtype=i32, device=device), text])
     text_idx = slots - slot
@@ -273,14 +331,19 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
     if not track and i0 < m <= i0 + rps * slots:
         hit_s, hit_r = divmod(m - 1 - i0, rps)
         hit_t = n + hit_s - 1
-    dirs = ckpts = None
+    dirs = ckpts = dirs2 = ckpts_e = None
     if with_dirs:
         dirs = torch.empty((steps // DIR_STEPS_PER_WORD * rps, slots),
                            dtype=i32, device=device)
         word = torch.zeros((rps, slots), dtype=i32, device=device)
+        if affine:
+            dirs2 = torch.empty_like(dirs)
+            word2 = torch.zeros_like(word)
     if ckpt_every:
         ckpts = torch.zeros((num_checkpoints(steps, ckpt_every) * rps, slots),
                             dtype=i32, device=device)
+        if affine:
+            ckpts_e = torch.zeros_like(ckpts)
     stream = torch.empty(steps, dtype=i32, device=device)
     for t in range(steps):
         jvec = t - slot + 1
@@ -289,24 +352,56 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
         nb_top = torch.cat([bottom[t:t + 1], H[rps - 1, :-1]])
         diag = torch.cat([topsh[None, :], H[:-1]]) + sub_flat[pat_off + w]
         left = H
-        c = torch.maximum(diag, left - gap)
-        if local:
-            c = c.clamp_min(0)
-        chain = torch.cummax(torch.cat([nb_top[None, :], c]) + ramp,
-                             dim=0).values - ramp
-        cur = torch.where(started, chain[1:], left)
+        if affine:
+            nb_f = torch.cat([fbottom[t:t + 1], flast[:-1]])
+            e_ext = E - ext
+            e_open = left - gap
+            e_new = torch.maximum(e_ext, e_open)
+            c = torch.maximum(diag, e_new)
+            if local:
+                c = c.clamp_min(0)
+            f0 = torch.maximum(nb_f - ext, nb_top - gap)
+            x = torch.cat([f0[None, :], c[:-1] - gap])
+            f = torch.cummax(x + framp, dim=0).values - framp
+            cur = torch.where(started, torch.maximum(c, f), left)
+            F = torch.where(started, f, nb_f[None, :])
+            E = torch.where(started, e_new, E)
+            flast = F[rps - 1]
+            fstream[t] = flast[slots - 1]
+        else:
+            c = torch.maximum(diag, left - gap)
+            if local:
+                c = c.clamp_min(0)
+            chain = torch.cummax(torch.cat([nb_top[None, :], c]) + ramp,
+                                 dim=0).values - ramp
+            cur = torch.where(started, chain[1:], left)
         if with_dirs:
             top = torch.cat([nb_top[None, :], cur[:-1]])
-            gap_best = torch.maximum(top, left) - gap
-            d = torch.where(diag > gap_best, 1,
-                            torch.where(left >= top, 0, 2))
+            if affine:
+                # F from above as each cell saw it (passed through
+                # unstarted slots), and its run bits.
+                f_ext = torch.cat([nb_f[None, :], F[:-1]]) - ext
+                f_open = top - gap
+                f_new = torch.maximum(f_ext, f_open)
+                gap_best = torch.maximum(e_new, f_new)
+                left_wins = e_new >= f_new
+                d2 = ((e_ext > e_open).to(i32)
+                      | ((f_ext > f_open).to(i32) << 1))
+            else:
+                gap_best = torch.maximum(top, left) - gap
+                left_wins = left >= top
+            d = torch.where(diag > gap_best, 1, torch.where(left_wins, 0, 2))
             if local:
                 d = torch.where(torch.maximum(diag, gap_best) > 0, d, 3)
             u = t % DIR_STEPS_PER_WORD
             word = d.to(i32) if u == 0 else word | (d.to(i32) << (2 * u))
+            if affine:
+                word2 = d2 if u == 0 else word2 | (d2 << (2 * u))
             if u == DIR_STEPS_PER_WORD - 1:
                 b = t // DIR_STEPS_PER_WORD
                 dirs[b * rps:(b + 1) * rps] = word
+                if affine:
+                    dirs2[b * rps:(b + 1) * rps] = word2
         if ckpt_every:
             # At most one slot reaches a checkpoint column j = (q+1)*C at
             # step t (C > slots): the slot t + 1 - j.
@@ -314,6 +409,8 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
             if s_hit < slots and t + 1 - s_hit >= ckpt_every:
                 q = (t + 1 - s_hit) // ckpt_every - 1
                 ckpts[q * rps:(q + 1) * rps, s_hit] = cur[:, s_hit]
+                if affine:
+                    ckpts_e[q * rps:(q + 1) * rps, s_hit] = E[:, s_hit]
         if track:
             valid = started & (jvec <= n)[None, :] & row_ok
             cand = torch.where(valid, cur, NEG_INF)
@@ -325,14 +422,17 @@ def wavefront_strip_plain(text_steps, bottom_in, pattern_slots,
         topsh = nb_top
         stream[t] = H[rps - 1, slots - 1]
     srows = slots // 128
-    return (
-        None if dirs is None else dirs.reshape(-1, srows, 128),
-        stream.reshape(num_blocks, STEPS),
-        acc.reshape(rps, srows, 128),
-        acc_j.reshape(rps, srows, 128),
-        snap.reshape(srows, 128),
-        None if ckpts is None else ckpts.reshape(-1, srows, 128),
-    )
+
+    def planes(x):
+        return None if x is None else x.reshape(-1, srows, 128)
+
+    out = (planes(dirs), stream.reshape(num_blocks, STEPS),
+           acc.reshape(rps, srows, 128), acc_j.reshape(rps, srows, 128),
+           snap.reshape(srows, 128), planes(ckpts))
+    if affine:
+        out += (planes(dirs2), fstream.reshape(num_blocks, STEPS),
+                planes(ckpts_e))
+    return out
 
 
 def merge_local_best(rowmaxs, argjs, rows: int, rps: int, m: int,

@@ -167,12 +167,36 @@ def test_on_cpu_launches_no_kernel():
             walk.walk_skewed_window.launches) == before
 
 
-def test_reference_affine_fill_is_refused():
-    class Affine:
-        gap_extend = 2
+@pytest.mark.parametrize("mode", MODES)
+def test_traceback_on_jax_affine_fill(mode):
+    # An affine (Gotoh) fill of the JAX engine brings its E checkpoint
+    # columns and F bottom rows; the port's own fill holds the same ones.
+    rng = np.random.default_rng(335 + ALGO[mode])
+    sm = score_matrix(4)
+    text, pattern = random_pair(rng, 4, n=980, m=650)
+    ref = jax_ck.checkpointed_fill(text, pattern, sm, 4, 8, gap_extend=2,
+                                   **GEOM, **MODES[mode])
+    ck = port_ck.from_reference_fill(ref, "cpu")
+    own = port_ck.checkpointed_fill(text, pattern, sm, 4, 8, gap_extend=2,
+                                    device="cpu", **GEOM, **MODES[mode])
+    assert (own.score, own.best_i, own.best_j, own.gap_extend) == (
+        ck.score, ck.best_i, ck.best_j, ck.gap_extend) == (
+        ck.score, ck.best_i, ck.best_j, 2)
+    full = 980 // GEOM["ckpt_cols"]
+    for mine, theirs in ((own.boundaries, ck.boundaries),
+                         (own.boundaries_f, ck.boundaries_f)):
+        assert len(mine) == len(theirs) == 3
+        for a, b in zip(mine, theirs):
+            assert torch.equal(a, b[:len(a)]) and not b[len(a):].any()
+    for mine, theirs in ((own.colvals, ck.colvals),
+                         (own.colvals_e, ck.colvals_e)):
+        for a, b in zip(mine, theirs):
+            assert torch.equal(a[:full], b[:full])
 
-    with pytest.raises(ValueError, match="affine"):
-        port_ck.from_reference_fill(Affine(), "cpu")
+    at, ap, st, sp = port_ck.checkpointed_traceback(ck, text, pattern, sm, 4)
+    oat, oap, ost, osp, oscore = jax_bindings.oracle_align_affine(
+        ALGO[mode], text, pattern, sm, 4, 8, 2)
+    assert_alignment((ck.score, at, ap, st, sp), (oscore, oat, oap, ost, osp))
 
 
 @pytest.mark.parametrize("m,rps,slots,want", [
@@ -220,7 +244,7 @@ def routed(mode, seed):
 @pytest.mark.parametrize("mode", MODES)
 def test_pair_past_direct_route_takes_checkpoint_engine(mode, monkeypatch,
                                                          checkpoint_calls):
-    monkeypatch.setattr(port_direct, "fits_direct", lambda n, m: False)
+    monkeypatch.setattr(port_direct, "fits_direct", lambda *a, **k: False)
 
     def refuse(*args, **kwargs):
         raise AssertionError("direct route taken")
@@ -228,7 +252,8 @@ def test_pair_past_direct_route_takes_checkpoint_engine(mode, monkeypatch,
     monkeypatch.setattr(port_direct, "direct_align", refuse)
     got, want = routed(mode, 350 + ALGO[mode])
     assert checkpoint_calls == [dict(local=mode == "local",
-                                     semi=mode == "semi", device="cpu")]
+                                     semi=mode == "semi", gap_extend=None,
+                                     device="cpu")]
     assert_alignment(got, want)
 
 

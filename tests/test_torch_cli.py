@@ -111,14 +111,34 @@ def test_no_cuda_device_gives_mem_error():
     assert (rc, out, err) == (1, "", constants.MEM_ERROR)
 
 
-@pytest.mark.parametrize("argv,needle", [
-    (["--gap-extend", "2", *DNA], "affine"),
-], ids=["affine"])
-def test_not_ported_requests_give_error(argv, needle):
-    rc, out, err = run_port(["-g", *argv])
-    assert (rc, out) == (1, "")
-    assert err.startswith("error: ") and needle in err
-    assert "Traceback" not in err
+@pytest.mark.parametrize("route,mode", [
+    ("direct", "--global"), ("direct", "--local"), ("direct", "--semi-global"),
+    ("checkpoint", "--local"),
+])
+def test_affine_gaps_match_oracle(route, mode, cpu_engine, monkeypatch,
+                                  capsys):
+    # -g --gap-extend takes the direct route, or the checkpoint engine
+    # (here at small tiles) for a pair the direct route does not take.
+    calls = []
+    if route == "checkpoint":
+        real = checkpoint.checkpointed_align
+
+        def small(*args, **kwargs):
+            calls.append(kwargs)
+            return real(*args, **kwargs, ckpt_cols=256, rps=1, slots=128)
+
+        monkeypatch.setattr(direct, "fits_direct",
+                            lambda n, m, affine=False: False)
+        monkeypatch.setattr(checkpoint, "checkpointed_align", small)
+    argv = [mode, "--gap-penalty", "11", "--gap-extend", "1", *PROTEIN]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    rc_j, out_j = run_main(jax_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == rc_j == 0
+    assert "# Score:" in out_g
+    assert out_g == out_c == out_j
+    if route == "checkpoint":
+        assert len(calls) == 1 and calls[0]["gap_extend"] == 1
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -135,7 +155,7 @@ def test_checkpoint_route_matches_oracle(mode, cpu_engine, monkeypatch,
         return real(*args, **kwargs, ckpt_cols=256, rps=1, slots=128)
 
     monkeypatch.setattr(config, "MAX_HOST_DIRS_BYTES", 0)
-    monkeypatch.setattr(direct, "fits_direct", lambda n, m: False)
+    monkeypatch.setattr(direct, "fits_direct", lambda *a, **k: False)
     monkeypatch.setattr(checkpoint, "checkpointed_align", small)
     argv = [mode, "-p", "data/protein/P04775.fasta",
             "data/protein/P10635.fasta"]

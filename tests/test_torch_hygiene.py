@@ -53,6 +53,7 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.ops.direct", "seqalign_torch.cli",
                  "seqalign_torch.models.base", "seqalign_torch.ops._build",
                  "seqalign_torch.ops.checkpoint",
+                 "seqalign_torch.ops.traceback",
                  "seqalign_torch.ops.batch_fill",
                  "seqalign_torch.ops.batch_traceback",
                  "seqalign_torch.parallel", "seqalign_torch.parallel.batch"):
