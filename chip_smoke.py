@@ -9,9 +9,9 @@ Phases, in order; any failed check raises and the script exits non-zero
 without its last line:
 
 1. Build the CUDA kernels (K1 ``csrc/wavefront.cu``, K2 ``csrc/walk.cu``,
-   K3 ``csrc/interpair.cu``, K4 ``csrc/batch_walk.cu``) and the native
-   oracle from the sources, all at once, and print the build time and
-   ptxas's lines.
+   K3 ``csrc/interpair.cu``, K4 ``csrc/batch_walk.cu``, K5
+   ``csrc/strip.cu``) and the native oracle from the sources, all at
+   once, and print the build time and ptxas's lines.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
@@ -112,10 +112,36 @@ without its last line:
     each affine kernel's launch alone is timed (K1 with words at full
     width, one phase-1 strip, one full-size interior tile, K2), held
     against the plain versions at phase 13's shapes.
-16. A JSON line of the kernels, the card's name and power limit from
+16. K5 (the strip engine's prefix-max fill) against its plain version,
+    on the card: global and local, with words and score-only, DNA and
+    protein, a pair's first region and an interior region of a real
+    tiled fill (row_base and strip_off > 0, the state carried, the left
+    column strip 0's right one), at 1,024, 32,768, 49,152 and 65,536
+    columns with columns past n, over STRIP_PLAIN_ROWS rows (512 at
+    1,024).  Every output (words, last row, right column, state) exact.
+17. The strip engine through ``-g`` (``SEQALIGN_PAIR_ENGINE=strip``),
+    with the native walk and with ``SEQALIGN_TRACEBACK=device`` (K4): the
+    main path's global and local pairs, GCA_003434045 x NC_001490.1
+    (one K5 launch of 7,296 x 49,152) and GCA_003434045 x NC_024446.1
+    (tiled, 2 strips x 4 blocks) in both modes, each byte-identical to
+    ``-c``; launch counters show K5 (and K4 in device mode), never K1;
+    the semi-global and affine requests still take K1, never K5.  The
+    7,296 x 49,152 region, global and local, whole through the wrapper
+    against the plain version on the run's own inputs.
+18. The strip engine at full width: ``-g`` on phase 5's pair (tiled, 9
+    strips x 6 blocks, 3.59 GB of words on the host) in both traceback
+    modes, byte-identical to phase 5's output, its score the oracle's;
+    the wall, K5's launches (CUDA events), the walk and peak memory;
+    then ``tiled_fill_score`` of phase 12's long pair (7 strips x 13
+    blocks) against the oracle's score.  Whole blocks of these runs
+    (8,192 x 32,768 interior and 7,680 x 32,768 last, with words; 16,384
+    x 32,768 score-only) through the wrapper against the plain version
+    on their own inputs; the interior block's launch alone and its
+    words' D2H.
+19. A JSON line of the kernels, the card's name and power limit from
     nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
-The oracle's side of phases 4, 5, 7-9, 11, 12, 14 and 15 runs in
+The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17 and 18 runs in
 subprocesses and threads beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
@@ -140,7 +166,8 @@ from seqalign_torch.io import parse_score_matrix_file
 from seqalign_torch.native import bindings
 from seqalign_torch.native.build import ensure_built
 from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
-                                checkpoint, direct, layout, walk, wavefront)
+                                checkpoint, direct, layout, strip_fill, tiled,
+                                walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
 from seqalign_torch.types import Request
 
@@ -178,6 +205,16 @@ K1_AFFINE_OPS_PER_CELL = K1_AFFINE_SCORE_OPS_PER_CELL + 6 + 4
 # next gap state (2) besides the linear walk's.
 K2_AFFINE_OPS_PER_MOVE = K2_OPS_PER_MOVE + 4
 
+# K5, per cell of the function (global): the cell is 6 (the diagonal's
+# add, top, their max, the left-gap chain's add of g j and its max, the
+# cell less g j); the direction 8 (left, gap_best, two compares, two
+# selects, the shift and the or into the word).  csrc/strip.cu's pass 1
+# recomputes top, the diagonal and the chain only to reduce each thread's
+# run for the block scan: a cost of that design, not of the function, so
+# it is left out of the bound.
+K5_SCORE_OPS_PER_CELL = 6
+K5_OPS_PER_CELL = K5_SCORE_OPS_PER_CELL + 8
+
 DNA = ("data/dna/dna_01.txt", "data/dna/dna_02.txt")
 NC_034972 = ("data/dna/NC_034972.1.txt", "data/dna/mutated_NC_034972.1.txt")
 # (route the pair must take, argv after -g / -c)
@@ -209,6 +246,27 @@ CKPT_MAIN_PATH = [
     (["-p", "data/protein/P33450.fasta", "data/protein/mutated_P33450.fasta"],
      dict(rps=1, slots=128, ckpt_cols=256)),
 ]
+
+# The strip engine's pairs at real size (phase 17): one K5 launch of
+# 7,296 rows x 49,152 columns, and a tiled fill of 2 strips x 4 blocks.
+SINGLE_REGION = ["data/dna/GCA_003434045.txt", "data/dna/NC_001490.1.txt"]
+TILED_PAIR = ["data/dna/GCA_003434045.txt", "data/dna/NC_024446.1.txt"]
+STRIP_BIG = [["--global", *SINGLE_REGION], ["--local", *SINGLE_REGION],
+             ["--global", *TILED_PAIR], ["--local", *TILED_PAIR]]
+# K5 against its plain version (phase 16): strip widths, and the rows of
+# the plain comparison (it steps once a row).
+STRIP_WIDTHS = (1024, 32768, 49152, 65536)
+STRIP_PLAIN_ROWS = 256
+# Main-path K5 launches held whole against the plain version on their own
+# inputs, (rows, width, row_base, strip_off, local, with_dirs): phase
+# 17's single region of SINGLE_REGION in both modes; phase 18's interior
+# block of the full-width run (strip 1, block 2) and its last block of
+# its last strip (column n and row m late in it); and an interior block
+# of the long pair's score-only fill (strip 3, block 5).
+HELD_SINGLE = [(7296, 49152, 0, 0, local, True) for local in (False, True)]
+HELD_FULL_INTERIOR = (8192, 32768, 16384, 32768, False, True)
+HELD_FULL_LAST = (7680, 32768, 40960, 262144, False, True)
+HELD_LONG = (16384, 32768, 81920, 98304, False, False)
 
 MODES = {"global": {}, "local": {"local": True}, "semi": {"semi": True}}
 ALGO = {"global": 0, "local": 1, "semi": 2}
@@ -398,6 +456,10 @@ def ptxas_summary(path):
         if args:
             label = (f"<rps {args[1]}, slots/thread {args[2]}, "
                      f"track {args[3]}, dirs {args[4]}, affine {args[5]}>")
+        elif args := re.search(r"strip_fill_kernelILi(\d+)ELb(\d)ELb(\d)E",
+                               name):
+            label = (f"<cols/thread {args[1]}, local {args[2]}, "
+                     f"dirs {args[3]}>")
         elif args := re.search(r"walk_skewed_kernelILb(\d)E", name):
             label = f"<affine {args[1]}>"
         elif args := re.search(r"ILi(\d)ELb(\d)E", name):
@@ -407,7 +469,8 @@ def ptxas_summary(path):
         else:
             label = ""
         kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel|"
-                           r"interpair_kernel|batch_walk_kernel)", name)
+                           r"interpair_kernel|batch_walk_kernel|"
+                           r"strip_fill_kernel)", name)
         lines.append(f"  {kernel[1] if kernel else name}{label}: {regs} "
                      f"registers, stack {stack} B, spill stores {st} B, "
                      f"loads {ld} B")
@@ -712,7 +775,7 @@ def phase_full_width(oracle_score):
     k2_ops = moves * K2_OPS_PER_MOVE
     return {
         "shape": f"{m} x {n}, rps {rps}, slots {slots}, global",
-        "wall_s": wall, "peak_bytes": peak, "counts": counts,
+        "wall_s": wall, "peak_bytes": peak, "counts": counts, "out": out,
         "K1": bound(k1_bytes, k1_ops) | {
             "ms": k1_ms, "plain_ms": k1_plain_ms, "err": k1_err,
             "plain_shape": plain_shape},
@@ -1906,6 +1969,455 @@ def phase_affine_full_width(direct_score, long_score, device="cuda"):
     return result
 
 
+def strip_tensors(device, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in arrays]
+
+
+def strip_first_region(rng, k, w, rows, device):
+    """K5's inputs of a pair's first region (row 0, column 0): n a
+    seventh of the strip short of its end, m not a multiple of 16."""
+    gap = 5 if k == 4 else 10
+    n, m = w - w // 7, rows - 5
+    text = rng.integers(0, k, n).astype(np.int32)
+    pat = np.zeros(rows, np.int32)
+    pat[:m] = rng.integers(0, k, m)
+    return gap, n, m, 0, 0, strip_tensors(
+        device, strip_fill.strip_letters(text, 0, w), score_matrix(k), pat)
+
+
+def strip_interior(rng, k, w, rows, local, device):
+    """K5's inputs of an interior region of a real tiled fill: strip 1
+    (columns w+1.., padded past n) at rows rows+1..2 rows, its left column
+    strip 0's right one, its row above and state from strip 1's first
+    block, both filled by K5 here."""
+    gap = 5 if k == 4 else 10
+    n, m = w + (5 * w) // 8, rows + rows // 2 + 3
+    text = rng.integers(0, k, n).astype(np.int32)
+    pat = np.zeros(2 * rows, np.int32)
+    pat[:m] = rng.integers(0, k, m)
+    letters0, letters1, sm, pat = strip_tensors(
+        device, strip_fill.strip_letters(text, 0, w),
+        strip_fill.strip_letters(text, w, w), score_matrix(k), pat)
+    state0 = strip_tensors(device, strip_fill.zeros_state())[0]
+    left0, prev0 = strip_tensors(
+        device, strip_fill.nw_boundary_col(0, 2 * rows, gap, local),
+        strip_fill.init_prev_row(w, 0, gap, local))
+    _, _, rcol, _ = strip_fill.strip_fill(letters0, sm, pat, gap, n, m, 0,
+                                          0, left0, prev0, state0,
+                                          local=local, with_dirs=False)
+    top = torch.full((1,), 0 if local else -gap * w, dtype=torch.int32,
+                     device=device)
+    left1 = torch.cat([top, rcol])
+    prev1 = strip_tensors(device, strip_fill.init_prev_row(w, w, gap,
+                                                           local))[0]
+    _, prev1, _, state1 = strip_fill.strip_fill(
+        letters1, sm, pat[:rows], gap, n, m, 0, w, left1[:rows + 1], prev1,
+        state0, local=local, with_dirs=False)
+    return gap, n, m, rows, w, [letters1, sm, pat[rows:],
+                                left1[rows:].contiguous(), prev1, state1]
+
+
+def phase_strip_kernel(device="cuda"):
+    """Phase 16: K5 against its plain version on the card, every output
+    (words, last row, right column, state): global and local, with words
+    and score-only, DNA and protein, a first region and an interior one
+    of a real tiled fill, at every width of STRIP_WIDTHS."""
+    rng = np.random.default_rng(2027)
+    err = 0
+    for w in STRIP_WIDTHS:
+        ks = (4, 23) if w in (1024, 32768) else (4,)
+        for k in ks:
+            for mode in ("global", "local"):
+                local = mode == "local"
+                for where in ("first", "interior"):
+                    if where == "first":
+                        rows = 512 if w == 1024 else STRIP_PLAIN_ROWS
+                        gap, n, m, row_base, strip_off, (letters, sm, pat) = \
+                            strip_first_region(rng, k, w, rows, device)
+                        left, prev, state = strip_tensors(
+                            device,
+                            strip_fill.nw_boundary_col(0, rows, gap, local),
+                            strip_fill.init_prev_row(w, 0, gap, local),
+                            strip_fill.zeros_state())
+                        args = [letters, sm, pat, left, prev, state]
+                    else:
+                        gap, n, m, row_base, strip_off, args = \
+                            strip_interior(rng, k, w, STRIP_PLAIN_ROWS,
+                                           local, device)
+                    letters, sm, pat, left, prev, state = args
+                    for with_dirs in (True, False):
+                        full = (letters, sm, pat, gap, n, m, row_base,
+                                strip_off, left, prev, state)
+                        got = strip_fill.strip_fill(*full, local=local,
+                                                    with_dirs=with_dirs)
+                        torch.cuda.synchronize()
+                        want, plain_ms = timed(
+                            strip_fill.strip_fill_plain, *full, local=local,
+                            with_dirs=with_dirs)
+                        e = max_abs_err(got, want)
+                        check(e == 0, f"K5 {mode} k={k} width {w} {where} "
+                                      f"words {with_dirs}: max_abs_err {e}")
+                        err = max(err, e)
+                        log(f"K5 {mode:6s} k={k:2d} width {w:5d} {where:8s} "
+                            f"(rows {row_base + 1}-{row_base + pat.numel()},"
+                            f" n {n}, m {m}) "
+                            f"{'words' if with_dirs else 'score':5s}: exact, "
+                            f"state {want[3].tolist()}, plain "
+                            f"{plain_ms:.0f} ms")
+    return err
+
+
+def strip_launches():
+    return {"K1": wavefront.wavefront_strip.launches,
+            "K5": strip_fill.strip_fill.launches,
+            "K4": batch_traceback.batch_walk.launches}
+
+
+def reset_strip_launches():
+    wavefront.wavefront_strip.launches = 0
+    strip_fill.strip_fill.launches = 0
+    batch_traceback.batch_walk.launches = 0
+
+
+STRIP_PLAIN = ((strip_fill, "strip_fill_plain"),
+               (batch_traceback, "_walk_plain"))
+
+
+@contextlib.contextmanager
+def environment(**settings):
+    """os.environ with ``settings`` within the block."""
+    saved = {key: os.environ.get(key) for key in settings}
+    os.environ.update(settings)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def strip_blocks(n, m, tiled_route):
+    """K5 launches of the strip engine on an n x m pair."""
+    if not tiled_route:
+        return 1
+    m_pad = strip_fill.pair_rows(m)
+    rows = min(m_pad, strip_fill.MAX_CHUNK_ROWS, tiled.DEFAULT_BLOCK_ROWS)
+    return -(-n // tiled.DEFAULT_STRIP_COLS) * -(-m_pad // rows)
+
+
+def strip_route_is_tiled(n, m):
+    return (strip_fill.pair_columns(n) > strip_fill.MAX_STRIP_COLS
+            or strip_fill.pair_rows(m) > strip_fill.MAX_CHUNK_ROWS)
+
+
+@contextlib.contextmanager
+def captured_regions(keys, store):
+    """Within the block, the first K5 launch of each key of ``keys``,
+    (rows, width, row_base, strip_off, local, with_dirs), made through
+    ``strip_fill.kernel_launch`` is kept in ``store[key]``: a copy of its
+    arguments, and its outputs (written once the launch has run)."""
+    real = strip_fill.kernel_launch
+
+    def wrapped(*args):
+        launch, out = real(*args)
+        text, _, pattern, *_, row_base, strip_off = args[:8]
+        key = (pattern.numel(), text.numel(), row_base, strip_off,
+               *args[11:13])
+        if key in keys and key not in store:
+            store[key] = ([x.clone() if torch.is_tensor(x) else x
+                           for x in args], out)
+        return launch, out
+
+    strip_fill.kernel_launch = wrapped
+    try:
+        yield
+    finally:
+        strip_fill.kernel_launch = real
+
+
+def hold_region(what, key, store):
+    """K5 through ``strip_fill.strip_fill`` on the card against
+    ``strip_fill_plain`` on the arguments of the main-path launch kept at
+    ``store[key]``, and the launch's own outputs against the plain ones,
+    every output exact.  Call it after the phase's launches were read:
+    the wrapper counts.  Returns (max_abs_err, plain ms)."""
+    check(key in store, f"{what}: no K5 launch {key} on the main path")
+    args, run_out = store.pop(key)
+    full, (local, with_dirs) = args[:11], args[11:13]
+    got = strip_fill.strip_fill(*full, local=local, with_dirs=with_dirs)
+    torch.cuda.synchronize()
+    want, plain_ms = timed(strip_fill.strip_fill_plain, *full, local=local,
+                           with_dirs=with_dirs)
+    err = max(max_abs_err(got, want), max_abs_err(run_out, want))
+    check(err == 0, f"K5 {what} {key}: max_abs_err {err}")
+    rows, w, row_base, strip_off = key[:4]
+    n, m = full[4:6]
+    log(f"K5 {what}, {'local' if local else 'global'}, rows "
+        f"{row_base + 1}-{row_base + rows} x columns {strip_off + 1}-"
+        f"{strip_off + w} (n {n}, m {m}), "
+        f"{'words' if with_dirs else 'score-only'}: the wrapper and the "
+        f"run's launch exact against the plain version, state "
+        f"{want[3].tolist()}, plain {plain_ms:.0f} ms")
+    return err, plain_ms
+
+
+def phase_strip_main_path(main_outputs, affine_outputs, big_outputs):
+    """Phase 17: -g with SEQALIGN_PAIR_ENGINE=strip in process, in both
+    traceback modes, against the -c subprocess outputs: the main path's
+    global and local pairs and STRIP_BIG through K5 (and K4 for the
+    device walk), never K1; the semi-global and affine requests through
+    K1, never K5.  Then the single region of SINGLE_REGION, whole, against
+    the plain version.  Returns (the launches of the phase, max_abs_err
+    of that comparison)."""
+    strip_cases = [(argv, out) for (_, argv), out in zip(MAIN_PATH,
+                                                         main_outputs)
+                   if "--semi-global" not in argv]
+    strip_cases += list(zip(STRIP_BIG, big_outputs))
+    held = {}
+    reset_strip_launches()
+    with plain_versions_forbidden(STRIP_PLAIN), \
+            captured_regions(HELD_SINGLE, held):
+        for tb in ("host", "device"):
+            for argv, want in strip_cases:
+                request = read_request(argv)
+                n, m = len(request.text), len(request.pattern)
+                tiled_route = strip_route_is_tiled(n, m)
+                before = strip_launches()
+                with environment(SEQALIGN_PAIR_ENGINE="strip",
+                                 SEQALIGN_TRACEBACK=tb):
+                    t0 = time.time()
+                    rc, out = run_cli(["-g", *argv])
+                    wall = time.time() - t0
+                delta = {kid: v - before[kid]
+                         for kid, v in strip_launches().items()}
+                rc_c, out_c, err_c = want()
+                check(rc == 0 and rc_c == 0,
+                      f"strip {argv}: rc -g {rc}, -c {rc_c} {err_c}")
+                check(out == out_c, f"strip {tb} {argv}: -g output differs "
+                                    f"from -c")
+                expect = {"K1": 0, "K5": strip_blocks(n, m, tiled_route),
+                          "K4": 1 if tb == "device" else 0}
+                check(delta == expect, f"strip {tb} {argv}: launches "
+                                       f"{delta}, expected {expect}")
+                score = out.rstrip("\n").rsplit("\t", 1)[-1]
+                log(f"-g strip engine, {tb} walk, {' '.join(argv)} "
+                    f"({m} x {n}, {'tiled' if tiled_route else 'one region'}"
+                    f"): launches {delta}, {wall:.2f} s, Score {score}, "
+                    f"byte-identical to -c")
+        # Semi-global and affine requests keep their routes under the
+        # setting: the direct route, K1 and K2.
+        others = [(MAIN_PATH[-1][1], main_outputs[-1])]
+        others += list(zip(AFFINE_MAIN_PATH, affine_outputs))
+        for argv, want in others:
+            before = strip_launches()
+            with environment(SEQALIGN_PAIR_ENGINE="strip"):
+                rc, out = run_cli(["-g", *argv])
+            delta = {kid: v - before[kid]
+                     for kid, v in strip_launches().items()}
+            rc_c, out_c, _ = want()
+            check(rc == 0 and rc_c == 0 and out == out_c,
+                  f"strip setting, {argv}: -g output differs from -c")
+            check(delta == {"K1": 1, "K5": 0, "K4": 0},
+                  f"strip setting, {argv}: launches {delta}")
+            log(f"-g {' '.join(argv)} with SEQALIGN_PAIR_ENGINE=strip: "
+                f"launches {delta} (the direct route), byte-identical to -c")
+    counts = strip_launches()
+    err = max(hold_region("single region of -g", key, held)[0]
+              for key in HELD_SINGLE)
+    return counts, err
+
+
+@contextlib.contextmanager
+def event_timed(module, name, store):
+    """Within the block every launch made through ``module.name`` (a
+    ``kernel_launch``-style function returning (launch, outputs)) is
+    timed between CUDA events, appended to ``store``."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        launch, out = real(*args, **kwargs)
+
+        def timed_launch():
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            stop.record()
+            store.append((start, stop))
+
+        return timed_launch, out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def host_timed(module, name, store):
+    """Within the block the host-clock time of each call of
+    ``module.name`` is appended to ``store`` (seconds)."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        store.append(time.time() - t0)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def events_ms(store):
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in store]
+
+
+def phase_strip_full_width(fw_out, oracle_score, long_score,
+                           device="cuda"):
+    """Phase 18: -g with the strip engine on the full-width pair (the
+    tiled fill, 9 strips x 6 blocks) in both traceback modes, byte-
+    identical to phase 5's output, its score the oracle's; the wall split
+    into K5, the walk and the rest; then ``tiled_fill_score`` of the long
+    pair against phase 12's oracle score.  Last, whole blocks of these
+    runs against the plain version on their own inputs (an interior block
+    and the last one of the full-width run, an interior block of the long
+    pair), and the interior block's K5 launch alone and its words' D2H."""
+    request = read_request(["-g", *FULL_WIDTH])
+    n, m, k = len(request.text), len(request.pattern), request.alphabet_size
+    check(strip_route_is_tiled(n, m), "full width: not the tiled route")
+    blocks = strip_blocks(n, m, True)
+    expected = oracle_score()
+    result = {"blocks": blocks}
+    held = {}
+    with plain_versions_forbidden(STRIP_PLAIN):
+        for tb in ("host", "device"):
+            k5_events, k4_events, walk_s = [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_strip_launches()
+            walker = (host_timed(bindings, "traceback_packed", walk_s)
+                      if tb == "host" else
+                      host_timed(bindings, "emit_moves", walk_s))
+            keep = (HELD_FULL_INTERIOR, HELD_FULL_LAST) if tb == "host" \
+                else ()
+            with environment(SEQALIGN_PAIR_ENGINE="strip",
+                             SEQALIGN_TRACEBACK=tb), \
+                    captured_regions(keep, held), \
+                    event_timed(strip_fill, "kernel_launch", k5_events), \
+                    event_timed(batch_traceback, "_launcher", k4_events), \
+                    walker:
+                t0 = time.time()
+                rc, out = run_cli(["-g", *FULL_WIDTH])
+                wall = time.time() - t0
+            counts = strip_launches()
+            peak = torch.cuda.max_memory_allocated()
+            k5_ms = events_ms(k5_events)
+            k4_ms = events_ms(k4_events)
+            check(rc == 0, f"strip full width {tb}: rc {rc}")
+            score = int(out.rstrip("\n").rsplit("\t", 1)[-1])
+            check(score == expected, f"strip full width {tb}: Score {score}, "
+                                     f"oracle {expected}")
+            check(out == fw_out, f"strip full width {tb}: output differs "
+                                 f"from the direct route's (phase 5)")
+            want = {"K1": 0, "K5": blocks, "K4": 1 if tb == "device" else 0}
+            check(counts == want, f"strip full width {tb}: launches "
+                                  f"{counts}, expected {want}")
+            rest = wall - sum(k5_ms) / 1e3 - sum(k4_ms) / 1e3 - sum(walk_s)
+            result[tb] = {
+                "wall_s": wall, "k5_s": sum(k5_ms) / 1e3,
+                "k5_launch_ms": [min(k5_ms), max(k5_ms)],
+                "walk_s": sum(walk_s), "k4_ms": sum(k4_ms),
+                "rest_s": rest, "peak_bytes": peak, "counts": counts}
+            log(f"strip full width {m} x {n}, {tb} walk: -g wall {wall:.2f} "
+                f"s, Score {score} == oracle score-only fill, output "
+                f"byte-identical to the direct route's; K5 {len(k5_ms)} "
+                f"launches {sum(k5_ms) / 1e3:.3f} s ({min(k5_ms):.1f}-"
+                f"{max(k5_ms):.1f} ms each), "
+                + (f"native walk {sum(walk_s):.3f} s"
+                   if tb == "host" else
+                   f"K4 {sum(k4_ms):.3f} ms, native emit "
+                   f"{sum(walk_s):.3f} s")
+                + f", the rest {rest:.3f} s; launches {counts}; "
+                f"max_memory_allocated {peak} B")
+
+    # The long pair, score only: 7 strips x 13 blocks of 16,384 rows.
+    long_req = read_request(LONG_PAIR)
+    lt = np.asarray(long_req.text, dtype=np.int32)
+    lp = np.asarray(long_req.pattern, dtype=np.int32)
+    lsm = layout.pack_score_matrix(long_req.score_matrix,
+                                   long_req.alphabet_size)
+    reset_strip_launches()
+    with plain_versions_forbidden(STRIP_PLAIN), \
+            captured_regions((HELD_LONG,), held):
+        score, wall_ms = timed(tiled.tiled_fill_score, lt, lp, lsm,
+                               long_req.alphabet_size, long_req.gap_penalty,
+                               device=device)
+    counts = strip_launches()
+    want_blocks = (-(-len(lt) // tiled.DEFAULT_STRIP_COLS)
+                   * -(-strip_fill.pair_rows(len(lp))
+                       // strip_fill.MAX_CHUNK_ROWS))
+    check(counts["K5"] == want_blocks,
+          f"long pair score: launches {counts}, expected {want_blocks}")
+    expected = long_score()
+    check(score == expected, f"long pair: tiled_fill_score {score}, oracle "
+                             f"{expected}")
+    result["long_score_wall_s"] = wall_ms / 1e3
+    result["long_counts"] = counts
+    log(f"long pair {len(lp)} x {len(lt)}: tiled_fill_score {score} == "
+        f"oracle score-only fill, {wall_ms / 1e3:.2f} s, {counts['K5']} K5 "
+        f"launches")
+
+    # The interior block of the full-width run: its K5 launch alone, and
+    # its words' D2H into pageable and into pinned memory.
+    args, (words, *_) = held[HELD_FULL_INTERIOR]
+    launch, _ = strip_fill.kernel_launch(*args)
+    _, k5_ms = cuda_ms_best(launch)
+    timed(words.cpu)  # the first copy pays for pages the second reuses
+    _, d2h_ms = timed(words.cpu)
+    pinned = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+    pinned.copy_(words)
+    _, d2h_pinned_ms = timed(pinned.copy_, words)
+    del launch, words, pinned
+    # Whole blocks of the main path against the plain version.
+    err, plain_ms = hold_region("interior block of the full-width -g",
+                                HELD_FULL_INTERIOR, held)
+    err_last, plain_last_ms = hold_region("last block of the full-width -g",
+                                          HELD_FULL_LAST, held)
+    err_long, plain_long_ms = hold_region("interior block of the long "
+                                          "pair's tiled_fill_score",
+                                          HELD_LONG, held)
+    rows, w, row_base, strip_off = HELD_FULL_INTERIOR[:4]
+    cells = rows * w
+    nbytes = (w + 4 * (2 * rows + 1) + 4 * w + 4 * k * k + 16     # inputs
+              + cells // 4 + 4 * w + 4 * rows + 16)               # outputs
+    shape = (f"{rows} x {w} with words, global (the full-width run's "
+             f"block at rows {row_base + 1}-{row_base + rows}, columns "
+             f"{strip_off + 1}-{strip_off + w})")
+    result["K5"] = bound(nbytes, cells * K5_OPS_PER_CELL) | {
+        "ms": k5_ms, "plain_ms": plain_ms,
+        "err": max(err, err_last, err_long), "shape": shape,
+        "plain_shape": shape}
+    result.update(d2h_block_ms=d2h_ms, d2h_pinned_ms=d2h_pinned_ms,
+                  plain_last_ms=plain_last_ms, plain_long_ms=plain_long_ms)
+    log(f"strip full width: K5 {k5_ms:.2f} ms for the {shape} (launch "
+        f"alone, CUDA events, best of 3); its words' D2H {d2h_ms:.2f} ms "
+        f"pageable, {d2h_pinned_ms:.2f} ms pinned ({rows // 4 * w} B); "
+        f"plain K5 {plain_ms:.0f} ms on the same block, "
+        f"{plain_last_ms:.0f} ms on the last block, {plain_long_ms:.0f} ms "
+        f"on the long pair's, all exact; bound {result['K5']['bound_ms']:.3f}"
+        f" ms ({result['K5']['bound_by']})")
+    return result
+
+
 def bound(nbytes, ops):
     """The least time of the work on an H100: bytes over the memory rate
     or int32 operations over the int32 rate, whichever is larger."""
@@ -1989,6 +2501,7 @@ def run(procs):
     ck_expected = in_thread(ckpt_oracle, ck_cases)
     affine_outputs = [procs.start(port_cli("-c", argv))
                       for argv in AFFINE_MAIN_PATH]
+    strip_outputs = [procs.start(port_cli("-c", argv)) for argv in STRIP_BIG]
     aff_cases = affine_ckpt_cases()
     aff_expected = in_thread(affine_ckpt_oracle, aff_cases)
 
@@ -2051,6 +2564,19 @@ def run(procs):
     af = phase_affine_full_width(affine_scores["direct"],
                                  affine_scores["long"])
     log(f"phase 15 (affine, full width): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    k5_err = phase_strip_kernel()
+    log(f"phase 16 (K5 against its plain version): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    strip_counts, k5_single_err = phase_strip_main_path(
+        oracle_outputs, affine_outputs, strip_outputs)
+    log(f"phase 17 (the strip engine through -g): {time.time() - t0:.1f} s, "
+        f"launches {json.dumps(strip_counts)}")
+    t0 = time.time()
+    sf = phase_strip_full_width(fw["out"], oracle_score, long_score)
+    log(f"phase 18 (the strip engine, full width): "
+        f"{time.time() - t0:.1f} s")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
     # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint
@@ -2124,15 +2650,42 @@ def run(procs):
     ):
         kid = name.split()[0]
         err = max(row["err"], batch_errs[kid])
+        # K4 also walks the strip engine's single pairs (phases 17-18).
+        strip_walks = (strip_counts["K4"] + sf["host"]["counts"]["K4"]
+                       + sf["device"]["counts"]["K4"]) if kid == "K4" else 0
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": batch_counts[kid] + full_counts[kid],
+            "launches": batch_counts[kid] + full_counts[kid] + strip_walks,
             "max_abs_err": err, "exact": err == 0,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row.get("shape", sw["shape"]),
         })
+    row = sf["K5"]
+    err = max(row["err"], k5_err, k5_single_err)
+    summary.append({
+        "name": "K5 strip_fill", "route": "cuda",
+        "source": "seqalign_torch/csrc/strip.cu",
+        "replaces": "seqalign_tpu/ops/pallas_fill.py:908",
+        "launches": (strip_counts["K5"] + sf["host"]["counts"]["K5"]
+                     + sf["device"]["counts"]["K5"]
+                     + sf["long_counts"]["K5"]),
+        "max_abs_err": err, "exact": err == 0,
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "shape": row["shape"],
+        "plain_shape": row["plain_shape"],
+    })
+    log(json.dumps({"strip": {
+        "host": {key: v for key, v in sf["host"].items() if key != "counts"},
+        "device": {key: v for key, v in sf["device"].items()
+                   if key != "counts"},
+        "d2h_block_ms": sf["d2h_block_ms"],
+        "d2h_pinned_ms": sf["d2h_pinned_ms"], "blocks": sf["blocks"],
+        "plain_last_ms": sf["plain_last_ms"],
+        "plain_long_ms": sf["plain_long_ms"],
+        "long_score_wall_s": sf["long_score_wall_s"]}}))
     log(json.dumps({"batch": {
         "score_wall_ms": sw["wall_ms"], "score_gcups_wall": sw["gcups_wall"],
         "score_gcups_kernel": sw["gcups_kernel"],

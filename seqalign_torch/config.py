@@ -21,6 +21,28 @@ def device() -> str:
     return os.environ.get(DEVICE_ENV, "").strip().lower() or "cuda"
 
 
+def traceback_mode() -> str:
+    """Where the strip engine walks its packed words: ``"host"`` (the
+    native walk over words on the host, the default) or ``"device"`` (K4
+    on the card; only the moves come back).  ``SEQALIGN_TRACEBACK``
+    overrides, as in the JAX package."""
+    forced = os.environ.get("SEQALIGN_TRACEBACK", "").lower()
+    return forced if forced in ("host", "device") else "host"
+
+
+def pair_engine() -> str:
+    """Single-pair engine of linear-gap global and local requests:
+    ``"wavefront"`` (the default: the wavefront route, the direct route
+    or the checkpoint engine by size), ``"strip"`` (the prefix-max strip
+    fill, K5, over one region or ``ops/tiled.py``) or ``"checkpoint"``
+    (the checkpoint engine for every size).  ``SEQALIGN_PAIR_ENGINE``
+    overrides, as in the JAX package."""
+    forced = os.environ.get("SEQALIGN_PAIR_ENGINE", "").lower()
+    if forced in ("wavefront", "strip", "checkpoint"):
+        return forced
+    return "wavefront"
+
+
 def available_host_bytes() -> int | None:
     """Measured available host RAM (None if unknown) — caps the budget
     of direction words brought to the host (the reference's analog is
@@ -35,10 +57,12 @@ def available_host_bytes() -> int | None:
     return None
 
 
-def host_dirs_budget() -> int:
-    """Budget for direction words brought to host RAM by the wavefront
-    route: MAX_HOST_DIRS_BYTES, capped at half the available memory."""
-    budget = MAX_HOST_DIRS_BYTES
+def host_dirs_budget(budget: int | None = None) -> int:
+    """Budget for direction words brought to host RAM: ``budget``
+    (default MAX_HOST_DIRS_BYTES, the wavefront route's), capped at half
+    the available memory."""
+    if budget is None:
+        budget = MAX_HOST_DIRS_BYTES
     avail = available_host_bytes()
     if avail is not None:
         budget = min(budget, avail // 2)
@@ -51,4 +75,11 @@ def host_dirs_budget() -> int:
 # back).  Same name and default as the JAX package.
 MAX_HOST_DIRS_BYTES = int(
     os.environ.get("SEQALIGN_MAX_HOST_DIRS_BYTES", 8 * 1024**2)
+)
+
+# Budget of the strip engine's single-region direction words; pairs
+# whose words exceed it (or half the available host memory) take the
+# tiled fill (ops/tiled.py).  Same name and default as the JAX package.
+MAX_DIRS_BYTES = int(
+    os.environ.get("SEQALIGN_MAX_DIRS_BYTES", 4 * 1024**3)
 )

@@ -9,7 +9,8 @@ import torch
 
 from .. import config
 from ..native import bindings
-from ..ops import checkpoint, direct, layout, wavefront
+from ..ops import checkpoint, direct, layout, strip_fill, tiled, wavefront
+from ..ops.traceback import run_device_traceback
 
 @dataclasses.dataclass
 class AlignmentResult:
@@ -24,7 +25,7 @@ class AlignmentResult:
 
 class PairAligner:
     """Base: one sequence pair through the wavefront route, the direct
-    route or the checkpoint engine."""
+    route, the checkpoint engine or the strip engine."""
 
     local: bool = False
 
@@ -40,6 +41,16 @@ class PairAligner:
                 np.asarray(text, dtype=np.int32),
                 np.asarray(pattern, dtype=np.int32), score_matrix,
                 alphabet_size, gap_penalty, device, gap_extend=gap_extend,
+            )
+        engine = config.pair_engine()
+        if engine == "strip":
+            return self._align_strip(text, pattern, score_matrix,
+                                     alphabet_size, gap_penalty, device)
+        if engine == "checkpoint":
+            return self._align_checkpoint(
+                np.asarray(text, dtype=np.int32),
+                np.asarray(pattern, dtype=np.int32), score_matrix,
+                alphabet_size, gap_penalty, device,
             )
         return self._align_wavefront(
             text, pattern, score_matrix, alphabet_size, gap_penalty, device,
@@ -124,5 +135,55 @@ class PairAligner:
                 device=device,
             )
         )
+        return AlignmentResult(aligned_text, aligned_pattern, start_t,
+                               start_p, score)
+
+    def _fill_strip(self, text, pattern, score_matrix, alphabet_size,
+                    gap_penalty, device):
+        """K5 over one region when the pair fits it, else the tiled fill
+        (the JAX ``_fill_pallas``'s routing).  Returns (words, score, bi,
+        bj): the words (m_pad/16, P) int32 stay on the device for one
+        region and are a host array for the tiled fill."""
+        n, m = len(text), len(pattern)
+        sm = layout.pack_score_matrix(score_matrix, alphabet_size)
+        p_cols = strip_fill.pair_columns(n)
+        m_pad = strip_fill.pair_rows(m)
+        dirs_bytes = (m_pad // strip_fill.DIR_ROWS_PER_WORD) * p_cols * 4
+        budget = config.host_dirs_budget(config.MAX_DIRS_BYTES)
+        if (dirs_bytes > budget or p_cols > strip_fill.MAX_STRIP_COLS
+                or m_pad > strip_fill.MAX_CHUNK_ROWS):
+            result = tiled.tiled_fill(text, pattern, sm, alphabet_size,
+                                      gap_penalty, local=self.local,
+                                      device=device)
+            return result.words, result.score, result.best_i, result.best_j
+        pat = np.zeros(m_pad, dtype=np.int32)
+        pat[:m] = pattern
+        to_device = [torch.from_numpy(x).to(device) for x in (
+            strip_fill.strip_letters(text, 0, p_cols), sm, pat)]
+        return strip_fill.pair_fill(*to_device, gap_penalty, n, m,
+                                    local=self.local)
+
+    def _align_strip(self, text, pattern, score_matrix, alphabet_size,
+                     gap_penalty, device):
+        """The strip engine (``SEQALIGN_PAIR_ENGINE=strip``), linear
+        global and local: ``_fill_strip``, then the native walk over the
+        words on the host or, with ``SEQALIGN_TRACEBACK=device``, K4 on
+        the device and the native replay of its moves."""
+        text = np.asarray(text, dtype=np.int32)
+        pattern = np.asarray(pattern, dtype=np.int32)
+        words, score, bi, bj = self._fill_strip(
+            text, pattern, score_matrix, alphabet_size, gap_penalty, device)
+        if config.traceback_mode() == "device":
+            aligned_text, aligned_pattern, start_t, start_p = (
+                run_device_traceback(words, text, pattern, len(text),
+                                     len(pattern), bi, bj, alphabet_size,
+                                     self.local, device=device))
+        else:
+            if isinstance(words, torch.Tensor):
+                words = words.cpu().numpy()
+            aligned_text, aligned_pattern, start_t, start_p = (
+                bindings.traceback_packed(
+                    1 if self.local else 0, words, text, pattern,
+                    alphabet_size, best_i=bi, best_j=bj))
         return AlignmentResult(aligned_text, aligned_pattern, start_t,
                                start_p, score)

@@ -48,6 +48,13 @@ def _library() -> ctypes.CDLL:
             i32p, i64, i64, i64, i64, i64, i8p, i8p, i32,
             u8p, u8p, pi64, pi64, pi64,
         ]
+        for name in ("sa_traceback_nw_packed", "sa_traceback_sw_packed"):
+            fn = getattr(lib, name)
+            fn.restype = None
+            fn.argtypes = [
+                i32p, i64, i64, i64, i8p, i8p, i32,
+                u8p, u8p, pi64, pi64, pi64,
+            ]
         lib.sa_fill_affine.restype = i32
         lib.sa_fill_affine.argtypes = [
             i32, i8p, i64, i8p, i64, i32p, i32, i32, i32, pi32, pi64,
@@ -259,6 +266,52 @@ def traceback_skewed(
         lib.sa_traceback_sw_skewed(
             flat, steps_pad, rps, slots, best_i, best_j, text, pattern,
             alphabet_size,
+            out_text, out_pattern,
+            ctypes.byref(out_len), ctypes.byref(out_st), ctypes.byref(out_sp),
+        )
+    k = out_len.value
+    return out_text[:k].copy(), out_pattern[:k].copy(), out_st.value, out_sp.value
+
+
+def traceback_packed(
+    algo: int,
+    words: np.ndarray,
+    text: np.ndarray,
+    pattern: np.ndarray,
+    alphabet_size: int,
+    best_i: int = 0,
+    best_j: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Traceback over the strip engine's packed direction words.
+
+    ``words`` is (num_word_rows, P) int32 — word row w, column position
+    p holds the directions of DP rows 16w+1..16w+16 at column p+1.
+    For algo 0 (global) the walk starts at (m, n); for algo 1 (local) at
+    (best_i, best_j).
+    """
+    lib = _library()
+    words = np.ascontiguousarray(words, dtype=np.int32)
+    if words.ndim == 3:
+        words = words.reshape(words.shape[0], -1)
+    p_cols = words.shape[1]
+    text = _as_i8(text)
+    pattern = _as_i8(pattern)
+    n, m = text.shape[0], pattern.shape[0]
+    out_text = np.empty(n + m + 1, dtype=np.uint8)
+    out_pattern = np.empty(n + m + 1, dtype=np.uint8)
+    out_len = ctypes.c_int64()
+    out_st = ctypes.c_int64()
+    out_sp = ctypes.c_int64()
+    flat = words.reshape(-1)
+    if algo == 0:
+        lib.sa_traceback_nw_packed(
+            flat, p_cols, n, m, text, pattern, alphabet_size,
+            out_text, out_pattern,
+            ctypes.byref(out_len), ctypes.byref(out_st), ctypes.byref(out_sp),
+        )
+    else:
+        lib.sa_traceback_sw_packed(
+            flat, p_cols, best_i, best_j, text, pattern, alphabet_size,
             out_text, out_pattern,
             ctypes.byref(out_len), ctypes.byref(out_st), ctypes.byref(out_sp),
         )

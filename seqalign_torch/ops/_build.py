@@ -20,7 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 from ..native.build import build_shared
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNELS = ("wavefront", "walk", "interpair", "batch_walk")
+KERNELS = ("wavefront", "walk", "interpair", "batch_walk", "strip")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}

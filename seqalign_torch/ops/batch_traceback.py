@@ -17,6 +17,12 @@ last move are 0.  A start outside the words walks no move.
 tensors on a CUDA device and runs ``batch_walk_plain``, the lockstep
 walk of the JAX ``batch_device_traceback``, for tensors on the CPU.
 Linear gaps only.
+
+``walk_packed`` walks one pair over the strip engine's (W, P) words
+(``strip_fill``, ``tiled_fill``) with the same kernel: one tile of one
+pair, so word (w, p) is read at w * P + p, the K4 address with
+tile_pairs = 1.  The walk's edge overrides and stop rules are those of
+the JAX ``ops/traceback.py::device_traceback``.
 """
 
 from __future__ import annotations
@@ -93,9 +99,17 @@ def kernel_launch(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
     i, j)); each ``launch()`` runs the kernel once on the current stream
     (a second run writes the same words), raising if the launch failed,
     and counts nothing (``batch_walk`` counts its launches)."""
+    _, num_w, n_cols, sub_rows, _ = dirs.shape
+    return _launcher(dirs, num_w, n_cols, sub_rows * 128, ns, ms, bis, bjs,
+                     local, semi, max_len)
+
+
+def _launcher(dirs, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
+              semi, max_len):
+    """``kernel_launch`` over words of any tile geometry: dirs holds
+    (B/tile_pairs, num_w, n_cols, tile_pairs) int32 in that order."""
     device = dirs.device
-    tiles, num_w, n_cols, sub_rows, _ = dirs.shape
-    b = tiles * sub_rows * 128
+    b = ns.shape[0]
     i32 = torch.int32
     packed = torch.zeros((max_len // 16, b), dtype=i32, device=device)
     lengths = torch.empty(b, dtype=i32, device=device)
@@ -109,7 +123,7 @@ def kernel_launch(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
             rc = _kernel()(
                 dirs.data_ptr(), ns.data_ptr(), ms.data_ptr(),
                 bis.data_ptr(), bjs.data_ptr(), b, num_w, n_cols,
-                sub_rows * 128, mode_code(local, semi), max_len,
+                tile_pairs, mode_code(local, semi), max_len,
                 packed.data_ptr(), lengths.data_ptr(), fi.data_ptr(),
                 fj.data_ptr(), stream,
             )
@@ -126,11 +140,16 @@ def batch_walk_plain(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
     lockstep, one gathered word a live pair a step (a pair moves on a
     prefix of the steps, so its k-th move is made at step k), on the
     words' device, with identical outputs."""
-    device = dirs.device
-    tiles, num_w, n_cols, sub_rows, _ = dirs.shape
-    tile_pairs = sub_rows * 128
-    b = tiles * tile_pairs
-    flat = dirs.reshape(-1)
+    _, num_w, n_cols, sub_rows, _ = dirs.shape
+    return _walk_plain(dirs.reshape(-1), num_w, n_cols, sub_rows * 128, ns,
+                       ms, bis, bjs, local, semi, max_len)
+
+
+def _walk_plain(flat, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
+                semi, max_len):
+    """``batch_walk_plain`` over flat words of any tile geometry."""
+    device = flat.device
+    b = ns.shape[0]
     pair = torch.arange(b, device=device)
     base = (pair // tile_pairs) * (num_w * n_cols * tile_pairs) \
         + pair % tile_pairs
@@ -174,3 +193,47 @@ def batch_walk_plain(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
     i32 = torch.int32
     return packed, k.to(i32), i.to(i32), j.to(i32)
 
+
+def _check_packed(words, n, m, bi, bj, local, max_len):
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError("words must be an int32 (W, P) tensor")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"walk_packed runs on cuda or cpu, not "
+                         f"{words.device}")
+    num_w, n_cols = words.shape
+    i0, j0 = (bi, bj) if local else (m, n)
+    if not (0 <= i0 <= num_w * DIR_ROWS_PER_WORD and 0 <= j0 <= n_cols):
+        raise ValueError(f"start ({i0}, {j0}) lies outside words of "
+                         f"{num_w * DIR_ROWS_PER_WORD} rows x {n_cols} "
+                         f"columns")
+    if max_len < 16 or max_len % 16:
+        raise ValueError(f"max_len must be a positive multiple of 16, "
+                         f"got {max_len}")
+
+
+def walk_packed(words, n: int, m: int, bi: int, bj: int, local: bool,
+                max_len: int):
+    """Walk one pair over the strip engine's words (W, P) from (m, n)
+    (global) or (bi, bj) (local), with K4 on a CUDA device or its plain
+    version on the CPU; a launch counts in ``batch_walk.launches``.
+
+    Returns (packed, stats) on the words' device: packed (max_len/16,)
+    int32 moves in walk order, stats (3,) int32 [moves, i, j] with the
+    final cursor.
+    """
+    _check_packed(words, n, m, bi, bj, local, max_len)
+    num_w, n_cols = words.shape
+    one = [torch.tensor([x], dtype=torch.int32, device=words.device)
+           for x in (n, m, bi, bj)]
+    if words.device.type == "cpu":
+        packed, lengths, i, j = _walk_plain(
+            words.reshape(-1), num_w, n_cols, 1, *one, local, False,
+            max_len)
+    else:
+        launch, (packed, lengths, i, j) = _launcher(
+            words, num_w, n_cols, 1, *one, local, False, max_len)
+        launch()
+        batch_walk.launches += 1
+    return packed[:, 0], torch.cat([lengths, i, j])

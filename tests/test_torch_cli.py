@@ -12,7 +12,7 @@ import pytest
 import seqalign_torch.cli as port_cli
 import seqalign_tpu.cli as jax_cli
 from seqalign_torch import config, constants
-from seqalign_torch.ops import checkpoint, direct
+from seqalign_torch.ops import checkpoint, direct, strip_fill, tiled, wavefront
 
 from .torch_support import one_torch_thread  # noqa: F401
 
@@ -165,3 +165,115 @@ def test_checkpoint_route_matches_oracle(mode, cpu_engine, monkeypatch,
     assert rc_g == rc_c == 0
     assert "# Score:" in out_g
     assert out_g == out_c
+
+
+def spy(monkeypatch, module, name):
+    """Count the calls of module.name (a kernel's plain version, which
+    the wrappers run for CPU tensors, so it marks the route taken)."""
+    calls = []
+    real = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("traceback", ["host", "device"])
+@pytest.mark.parametrize("mode", ["--global", "--local"])
+@pytest.mark.parametrize("inputs", [DNA, PROTEIN], ids=["dna", "protein"])
+def test_strip_engine_matches_oracle(inputs, mode, traceback, cpu_engine,
+                                     monkeypatch, capsys):
+    # SEQALIGN_PAIR_ENGINE=strip: K5 over one region, then the native walk
+    # (host) or K4 (device); never K1.
+    monkeypatch.setenv("SEQALIGN_PAIR_ENGINE", "strip")
+    monkeypatch.setenv("SEQALIGN_TRACEBACK", traceback)
+    k5 = spy(monkeypatch, strip_fill, "strip_fill_plain")
+    k1 = spy(monkeypatch, wavefront, "wavefront_strip_plain")
+    argv = [mode, *inputs]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == 0
+    assert "# Score:" in out_g
+    assert out_g == out_c
+    assert len(k5) == 1 and k1 == []
+
+
+@pytest.mark.parametrize("traceback", ["host", "device"])
+@pytest.mark.parametrize("mode", ["--global", "--local"])
+def test_strip_engine_tiled_route(mode, traceback, cpu_engine, monkeypatch,
+                                  capsys):
+    # Words past the budget take the tiled fill, here in strips of 1,024
+    # columns and blocks of 128 rows: 2 strips x 4 blocks for the text
+    # P04775 (2,005 letters) and the pattern P10635 (497).
+    monkeypatch.setenv("SEQALIGN_PAIR_ENGINE", "strip")
+    monkeypatch.setenv("SEQALIGN_TRACEBACK", traceback)
+    monkeypatch.setattr(config, "MAX_DIRS_BYTES", 0)
+    real = tiled.tiled_fill
+    calls = []
+
+    def small(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs, strip_cols=1024, block_rows=128)
+
+    monkeypatch.setattr(tiled, "tiled_fill", small)
+    k5 = spy(monkeypatch, strip_fill, "strip_fill_plain")
+    argv = [mode, "-p", "data/protein/P10635.fasta",
+            "data/protein/P04775.fasta"]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == 0
+    assert out_g == out_c
+    assert len(calls) == 1 and len(k5) == 2 * 4
+
+
+@pytest.mark.parametrize("argv", [
+    ["--semi-global", *DNA],
+    ["--global", "--gap-penalty", "11", "--gap-extend", "1", *PROTEIN],
+    ["--local", "--gap-penalty", "11", "--gap-extend", "1", *PROTEIN],
+], ids=["semi", "affine-global", "affine-local"])
+def test_strip_engine_leaves_semi_and_affine(argv, cpu_engine, monkeypatch,
+                                             capsys):
+    # Semi-global and affine requests never take the strip engine: they
+    # run K1 (the direct route), as the JAX package routes them.
+    monkeypatch.setenv("SEQALIGN_PAIR_ENGINE", "strip")
+    k5 = spy(monkeypatch, strip_fill, "strip_fill_plain")
+    k1 = spy(monkeypatch, wavefront, "wavefront_strip_plain")
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == 0
+    assert out_g == out_c
+    assert k5 == [] and len(k1) >= 1
+
+
+def test_checkpoint_engine_setting(cpu_engine, monkeypatch, capsys):
+    # SEQALIGN_PAIR_ENGINE=checkpoint sends a small pair to the checkpoint
+    # engine, as in the JAX package.
+    monkeypatch.setenv("SEQALIGN_PAIR_ENGINE", "checkpoint")
+    calls = []
+    real = checkpoint.checkpointed_align
+
+    def small(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs, ckpt_cols=256, rps=1, slots=128)
+
+    monkeypatch.setattr(checkpoint, "checkpointed_align", small)
+    argv = ["--local", *PROTEIN]
+    rc_g, out_g = run_main(port_cli.main, ["-g", *argv], capsys)
+    rc_c, out_c = run_main(port_cli.main, ["-c", *argv], capsys)
+    assert rc_g == rc_c == 0
+    assert out_g == out_c
+    assert len(calls) == 1
+
+
+def test_strip_engine_without_cuda_gives_mem_error():
+    env = dict(os.environ, SEQALIGN_PAIR_ENGINE="strip",
+               SEQALIGN_TRACEBACK="device")
+    env.pop("SEQALIGN_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "seqalign_torch", "-g", *DNA], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert (proc.returncode, proc.stdout, proc.stderr) == (
+        1, "", constants.MEM_ERROR)

@@ -20,7 +20,8 @@ modules = sorted(
 for name in modules:
     importlib.import_module(name)
 import chip_smoke  # runs nothing: its work is under the __main__ check
-from seqalign_torch.ops import batch_fill, batch_traceback, walk, wavefront
+from seqalign_torch.ops import (batch_fill, batch_traceback, strip_fill,
+                                walk, wavefront)
 foreign = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu")
@@ -32,7 +33,8 @@ print(json.dumps({
                  walk.walk_skewed_window.launches,
                  batch_fill.batch_score.launches,
                  batch_fill.batch_fill_dirs.launches,
-                 batch_traceback.batch_walk.launches],
+                 batch_traceback.batch_walk.launches,
+                 strip_fill.strip_fill.launches],
 }))
 """
 
@@ -56,10 +58,11 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.ops.traceback",
                  "seqalign_torch.ops.batch_fill",
                  "seqalign_torch.ops.batch_traceback",
-                 "seqalign_torch.parallel", "seqalign_torch.parallel.batch"):
+                 "seqalign_torch.parallel", "seqalign_torch.parallel.batch",
+                 "seqalign_torch.ops.strip_fill", "seqalign_torch.ops.tiled"):
         assert name in got["modules"]
     assert got["foreign"] == []
-    assert got["launches"] == [0, 0, 0, 0, 0]
+    assert got["launches"] == [0, 0, 0, 0, 0, 0]
 
 
 def test_port_sources_name_no_jax():
