@@ -138,11 +138,32 @@ without its last line:
     x 32,768 score-only) through the wrapper against the plain version
     on their own inputs; the interior block's launch alone and its
     words' D2H.
-19. A JSON line of the kernels, the card's name and power limit from
+19. Affine K3 (score-only and with the words and run bits) and affine
+    K4 against their plain versions, on the card: global, local and
+    semi-global, DNA and protein, extend below open and equal to it,
+    ragged lengths with padding pairs, n not a multiple of 128,
+    tile_pairs 128 and 256; every score, best cell, word, run-bit word,
+    move word, length and final cursor, K4 with the full buffer and with
+    64 moves.  Exact.
+20. The affine batch main path: ``BatchAligner(gap_extend=2)`` at open
+    8 (phase 15's costs), ``.score`` and ``.align`` on phase 7's mix in
+    the three modes, DNA and protein; every score equals
+    ``oracle_fill_affine``'s and every alignment is byte-identical to
+    ``oracle_align_affine``'s; launch counters and the plain versions as
+    in phase 7.
+21. Affine at full width, scores: ``BatchAligner(local=True,
+    gap_penalty=8, gap_extend=2).score`` on phase 8's workload, 512
+    sampled pairs against the oracle; then affine K3 timed at that shape
+    and held against its plain version there.
+22. Affine at full width, alignments: ``.align`` with the same costs on
+    phase 9's workload, 1,024 sampled pairs byte-identical to the
+    oracle; then affine K3 with words and affine K4 timed on one chunk
+    and held against their plain versions there.
+23. A JSON line of the kernels, the card's name and power limit from
     nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
-The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17 and 18 runs in
-subprocesses and threads beside the device phases.
+The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18 and 20-22
+runs in subprocesses and threads beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
 
@@ -204,6 +225,13 @@ K1_AFFINE_OPS_PER_CELL = K1_AFFINE_SCORE_OPS_PER_CELL + 6 + 4
 # Affine K2, per move: the run bits out of the second word (2) and the
 # next gap state (2) besides the linear walk's.
 K2_AFFINE_OPS_PER_MOVE = K2_OPS_PER_MOVE + 4
+# Affine K3, per cell: H with E and F as in affine K1 (9) and the
+# substitution's table index (1); with words, the 2-bit direction (6) and
+# the run bits (4: two compares, a shift and an or into the second word).
+K3_AFFINE_OPS_PER_CELL = K1_AFFINE_SCORE_OPS_PER_CELL + 1
+K3_AFFINE_DIRS_OPS_PER_CELL = K3_AFFINE_OPS_PER_CELL + 6 + 4
+# Affine K4, per move: as affine K2's walk.
+K4_AFFINE_OPS_PER_MOVE = K2_AFFINE_OPS_PER_MOVE
 
 # K5, per cell of the function (global): the cell is 6 (the diagonal's
 # add, top, their max, the left-gap chain's add of g j and its max, the
@@ -318,6 +346,12 @@ SCORE_WIDTH = (8192, 512, 512, 42)
 ALIGN_WIDTH = (65536, 256, 9)
 # The local DNA matrix and gap of both workloads.
 DNA_5_4 = np.where(np.eye(4, dtype=bool), 5, -4).astype(np.int32)
+# Affine costs of the batch phases 20-22 (open, extend): phase 15's, the
+# oracle's sa_align_affine costs.
+BATCH_AFFINE = (8, 2)
+# Affine costs of phase 19 by alphabet size, (open, extend): extend below
+# open, and equal to it (the linear costs through the affine kernels).
+BATCH_AFFINE_KERNEL_COSTS = {4: ((8, 2), (5, 5)), 23: ((11, 1), (10, 10))}
 
 
 def log(*parts):
@@ -462,10 +496,12 @@ def ptxas_summary(path):
                      f"dirs {args[3]}>")
         elif args := re.search(r"walk_skewed_kernelILb(\d)E", name):
             label = f"<affine {args[1]}>"
-        elif args := re.search(r"ILi(\d)ELb(\d)E", name):
-            label = f"<mode {args[1]}, dirs {args[2]}>"
-        elif args := re.search(r"ILi(\d)EE", name):
-            label = f"<mode {args[1]}>"
+        elif args := re.search(r"interpair_kernelILi(\d)ELb(\d)ELb(\d)E",
+                               name):
+            label = (f"<mode {args[1]}, dirs {args[2]}, "
+                     f"affine {args[3]}>")
+        elif args := re.search(r"batch_walk_kernelILi(\d)ELb(\d)E", name):
+            label = f"<mode {args[1]}, affine {args[2]}>"
         else:
             label = ""
         kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel|"
@@ -860,58 +896,110 @@ def walk_starts(scores, bis, bjs, local):
     return bis, bjs
 
 
-def phase_batch_kernels(device="cuda", b=512, n=300, m=208):
-    """Phase 6: K3 (both variants) and K4 against their plain versions."""
-    rng = np.random.default_rng(2026)
-    errs = {"K3-score": 0, "K3-dirs": 0, "K4": 0}
+def affine_walk_reads(packed, lengths, dirs2, bis, bjs, tile_pairs):
+    """The 4-byte loads the local affine walks from (bis, bjs) need,
+    worked out from their moves (``packed``, ``lengths``) and the run bits
+    ``dirs2`` they read: the direction word of every move taken in state
+    H, and the run bits of every LEFT or TOP move (in H they say whether a
+    run starts, in a run whether it goes on).  A DIAG move leaves the walk
+    in H, so its run bits are not needed; a move inside a run is forced,
+    so its word is not.  Checks that each move inside a run repeats the
+    move before it."""
+    b = packed.shape[1]
+    shifts = 2 * torch.arange(16, device=packed.device, dtype=torch.int32)
+    moves = ((packed.t().unsqueeze(-1) >> shifts) & 3).reshape(b, -1)
+    valid = (torch.arange(moves.shape[1], device=moves.device)
+             < lengths.long().unsqueeze(1))
+    left, diag, top = moves == 0, moves == 1, moves == 2
+    # The cell each move starts from.
+    up, back = (diag | top).long(), (diag | left).long()
+    i = bis.long().unsqueeze(1) - (up.cumsum(1) - up)
+    j = bjs.long().unsqueeze(1) - (back.cumsum(1) - back)
+    tiles, num_w, n_cols = dirs2.shape[:3]
+    ic = (i - 1).clamp(0, num_w * 16 - 1)
+    jc = (j - 1).clamp(0, n_cols - 1)
+    pair = torch.arange(b, device=moves.device).unsqueeze(1)
+    tile, slot = pair // tile_pairs, pair % tile_pairs
+    at = ((tile * num_w + ic // 16) * n_cols + jc) * tile_pairs + slot
+    bits = (dirs2.reshape(-1)[at] >> (2 * (ic % 16)).int()) & 3
+    gap_moves = valid & ~diag
+    enters = gap_moves & ((left & (bits & 1 != 0)) | (top & (bits & 2 != 0)))
+    in_run = enters[:, :-1] & valid[:, 1:]   # move t+1 is inside a run
+    check(bool((moves[:, 1:] == moves[:, :-1])[in_run].all()),
+          "a move inside a run is not the run's direction")
+    return (int(valid.sum()) - int(in_run.sum())) + int(gap_moves.sum())
+
+
+def phase_batch_kernels(device="cuda", b=512, n=300, m=208, affine=False):
+    """Phase 6: K3 (both variants) and K4 against their plain versions;
+    with ``affine``, phase 19: their affine instances (the run bits
+    too), at BATCH_AFFINE_KERNEL_COSTS."""
+    rng = np.random.default_rng(2027 if affine else 2026)
+    ids = (("K3-affine-score", "K3-affine-dirs", "K4-affine") if affine
+           else ("K3-score", "K3-dirs", "K4"))
+    errs = dict.fromkeys(ids, 0)
     for k in (4, 23):
         sm = torch.from_numpy(score_matrix(k)).to(device)
-        gap = 5 if k == 4 else 10
+        costs = (BATCH_AFFINE_KERNEL_COSTS[k] if affine
+                 else ((5 if k == 4 else 10, None),))
         for mode, kw in MODES.items():
-            texts, patterns, ns, ms = batch_case(rng, b, n, m, k, device)
-            # Score-only: a width that is not a multiple of 16.
-            narrow = patterns[:, :m - 3].contiguous()
-            got = batch_fill.batch_score(texts, narrow, ns, ms, sm, gap, k,
-                                         **kw)
-            torch.cuda.synchronize()
-            want = batch_fill.batch_score_plain(texts, narrow, ns, ms, sm,
-                                                gap, k, **kw)
-            err = max_abs_err([got], [want])
-            check(err == 0, f"K3-score {mode} k={k}: max_abs_err {err}")
-            for tile in (128, 256):
-                out = batch_fill.batch_fill_dirs(texts, patterns, ns, ms, sm,
-                                                 gap, k, tile_pairs=tile,
-                                                 **kw)
+            for gap, ext in costs:
+                what = f"{mode} k={k}" + (f" {gap}/{ext}" if affine else "")
+                texts, patterns, ns, ms = batch_case(rng, b, n, m, k, device)
+                # Score-only: a width that is not a multiple of 16.
+                narrow = patterns[:, :m - 3].contiguous()
+                got = batch_fill.batch_score(texts, narrow, ns, ms, sm, gap,
+                                             k, gap_extend=ext, **kw)
                 torch.cuda.synchronize()
-                plain = batch_fill.batch_fill_dirs_plain(
-                    texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
-                    **kw)
-                derr = max_abs_err(out, plain)
-                check(derr == 0, f"K3-dirs {mode} k={k} tile {tile}: "
-                                 f"max_abs_err {derr}")
-                bis, bjs = walk_starts(*out[:3], mode == "local")
-                moves = []
-                for max_len in (-(-(n + m) // 16) * 16, 64):
-                    wk = batch_traceback.batch_walk(
-                        out[3], ns, ms, bis, bjs, mode == "local",
-                        mode == "semi", max_len)
+                want = batch_fill.batch_score_plain(
+                    texts, narrow, ns, ms, sm, gap, k, gap_extend=ext, **kw)
+                err = max_abs_err([got], [want])
+                check(err == 0, f"{ids[0]} {what}: max_abs_err {err}")
+                errs[ids[0]] = max(errs[ids[0]], err)
+                for tile in (128, 256):
+                    out = batch_fill.batch_fill_dirs(
+                        texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
+                        gap_extend=ext, **kw)
                     torch.cuda.synchronize()
-                    wp = batch_traceback.batch_walk_plain(
-                        out[3], ns, ms, bis, bjs, mode == "local",
-                        mode == "semi", max_len)
-                    werr = max_abs_err(wk, wp)
-                    check(werr == 0, f"K4 {mode} k={k} tile {tile} "
-                                     f"max_len {max_len}: max_abs_err {werr}")
-                    errs["K4"] = max(errs["K4"], werr)
-                    moves.append(int(wk[1].max()))
-                check(moves[1] == 64 or moves[0] <= 64,
-                      f"K4 {mode} k={k}: the 64-move buffer did not stop "
-                      f"the longest walk ({moves})")
-                errs["K3-dirs"] = max(errs["K3-dirs"], derr)
-                log(f"K3 {mode:6s} k={k:2d} tile {tile}: {b} pairs "
-                    f"{m} x {n}, scores, best cells and every word exact; "
-                    f"K4 exact, longest walk {moves[0]} moves")
-            errs["K3-score"] = max(errs["K3-score"], err)
+                    plain = batch_fill.batch_fill_dirs_plain(
+                        texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
+                        gap_extend=ext, **kw)
+                    check(len(out) == (5 if affine else 4),
+                          f"{ids[1]} {what}: {len(out)} outputs")
+                    derr = max_abs_err(out, plain)
+                    check(derr == 0, f"{ids[1]} {what} tile {tile}: "
+                                     f"max_abs_err {derr}")
+                    errs[ids[1]] = max(errs[ids[1]], derr)
+                    bis, bjs = walk_starts(*out[:3], mode == "local")
+                    dirs2 = out[4] if affine else None
+                    moves = []
+                    for max_len in (-(-(n + m) // 16) * 16, 64):
+                        walk_args = (out[3], ns, ms, bis, bjs,
+                                     mode == "local", mode == "semi",
+                                     max_len)
+                        wk = batch_traceback.batch_walk(*walk_args,
+                                                        dirs2=dirs2)
+                        torch.cuda.synchronize()
+                        wp = batch_traceback.batch_walk_plain(*walk_args,
+                                                              dirs2=dirs2)
+                        werr = max_abs_err(wk, wp)
+                        check(werr == 0, f"{ids[2]} {what} tile {tile} "
+                                         f"max_len {max_len}: max_abs_err "
+                                         f"{werr}")
+                        errs[ids[2]] = max(errs[ids[2]], werr)
+                        moves.append(int(wk[1].max()))
+                    check(moves[1] == 64 or moves[0] <= 64,
+                          f"{ids[2]} {what}: the 64-move buffer did not "
+                          f"stop the longest walk ({moves})")
+                    words = ("every word exact" if not affine else
+                             f"every word and run-bit word exact "
+                             f"({int((dirs2 != 0).sum())} run-bit words "
+                             f"set)")
+                    log(f"{'affine ' if affine else ''}K3 {mode:6s} "
+                        f"k={k:2d}{f' {gap}/{ext}' if affine else ''} tile "
+                        f"{tile}: {b} pairs {m} x {n}, scores, best cells "
+                        f"and {words}; K4 exact, longest walk {moves[0]} "
+                        f"moves")
     return errs
 
 
@@ -949,9 +1037,10 @@ def batch_mix(k, seed):
     return texts, patterns
 
 
-def batch_oracle(cases):
+def batch_oracle(cases, costs=None):
     """The oracle's scores (score()'s default swap) and alignments of
-    every case of the batch main path."""
+    every case of the batch main path: linear gaps (5 for DNA, 10 for
+    protein), or the affine (open, extend) ``costs``."""
     out = {}
     for (k, mode), (texts, patterns) in cases.items():
         sm = score_matrix(k)
@@ -959,10 +1048,16 @@ def batch_oracle(cases):
         scores, aligned = [], []
         for t, p in zip(texts, patterns):
             st, sp = (p, t) if len(t) < len(p) else (t, p)
-            scores.append(bindings.oracle_fill(ALGO[mode], st, sp, sm, k,
-                                               gap)[1])
-            aligned.append(bindings.oracle_align(ALGO[mode], t, p, sm, k,
-                                                 gap))
+            if costs is None:
+                scores.append(bindings.oracle_fill(ALGO[mode], st, sp, sm, k,
+                                                   gap)[1])
+                aligned.append(bindings.oracle_align(ALGO[mode], t, p, sm,
+                                                     k, gap))
+            else:
+                scores.append(bindings.oracle_fill_affine(
+                    ALGO[mode], st, sp, sm, k, *costs)[0])
+                aligned.append(bindings.oracle_align_affine(
+                    ALGO[mode], t, p, sm, k, *costs))
         out[k, mode] = (scores, aligned)
     return out
 
@@ -975,16 +1070,21 @@ def same_alignment(r, want):
             and np.array_equal(r.aligned_pattern, ap))
 
 
-def phase_batch_main_path(cases, oracle, device="cuda"):
-    """Phase 7: BatchAligner.score and .align against the oracle; returns
-    the launches of the phase."""
+def phase_batch_main_path(cases, oracle, device="cuda", costs=None):
+    """Phase 7: BatchAligner.score and .align against the oracle; with the
+    affine (open, extend) ``costs``, phase 20.  Returns the launches of
+    the phase."""
     expected = oracle()
+    fill, align = (("oracle_fill", "oracle_align") if costs is None
+                   else ("oracle_fill_affine", "oracle_align_affine"))
     reset_batch_launches()
     with plain_versions_forbidden():
         for (k, mode), (texts, patterns) in cases.items():
-            gap = 5 if k == 4 else 10
-            aligner = BatchAligner(score_matrix(k), k, gap, device=device,
-                                   **MODES[mode])
+            gap, ext = costs or (5 if k == 4 else 10, None)
+            what = (f"batch {mode:6s} k={k:2d}" if costs is None else
+                    f"affine batch {mode:6s} k={k:2d} {gap}/{ext}")
+            aligner = BatchAligner(score_matrix(k), k, gap, gap_extend=ext,
+                                   device=device, **MODES[mode])
             before = batch_launches()
             t0 = time.time()
             scores = aligner.score(texts, patterns)
@@ -995,17 +1095,15 @@ def phase_batch_main_path(cases, oracle, device="cuda"):
                      for kid, v in batch_launches().items()}
             want_scores, want_aligned = expected[k, mode]
             check(list(scores) == want_scores,
-                  f"batch score {mode} k={k}: differs from oracle_fill")
+                  f"{what}: scores differ from {fill}")
             bad = [i for i, (r, w) in enumerate(zip(results, want_aligned))
                    if not same_alignment(r, w)]
-            check(not bad, f"batch align {mode} k={k}: pairs {bad[:10]} "
-                           f"differ from oracle_align")
+            check(not bad, f"{what}: pairs {bad[:10]} differ from {align}")
             check(all(delta[kid] >= 1 for kid in delta),
-                  f"batch {mode} k={k}: launches {delta}")
-            log(f"batch {mode:6s} k={k:2d}: {len(texts)} pairs, score "
-                f"{t1 - t0:.2f} s, align {t2 - t1:.2f} s, launches {delta}; "
-                f"scores == oracle_fill, alignments byte-identical to "
-                f"oracle_align")
+                  f"{what}: launches {delta}")
+            log(f"{what}: {len(texts)} pairs, score {t1 - t0:.2f} s, align "
+                f"{t2 - t1:.2f} s, launches {delta}; scores == {fill}, "
+                f"alignments byte-identical to {align}")
     return batch_launches()
 
 
@@ -1029,25 +1127,36 @@ def align_width_data():
     return texts, patterns, sample
 
 
-def phase_score_width(data, oracle_scores, device="cuda"):
+def phase_score_width(data, oracle_scores, device="cuda", costs=None,
+                      linear=None):
     """Phase 8: BatchAligner(local=True).score at bench.py's headline,
-    then K3 at its bucket's shape against its plain version."""
+    then K3 at its bucket's shape against its plain version; with the
+    affine (open, extend) ``costs``, phase 21, printed beside phase 8's
+    result ``linear``."""
     texts, patterns, sample = data
     b, n, m, _ = SCORE_WIDTH
-    aligner = BatchAligner(DNA_5_4, 4, 5, local=True, device=device)
+    gap, ext = costs or (5, None)
+    affine = costs is not None
+    kid = "K3-affine-score" if affine else "K3-score"
+    what = f"affine score width ({gap}/{ext})" if affine else "score width"
+    fill = "oracle_fill_affine" if affine else "oracle_fill"
+    aligner = BatchAligner(DNA_5_4, 4, gap, local=True, gap_extend=ext,
+                           device=device)
     reset_batch_launches()
     with plain_versions_forbidden():
         scores, wall_ms = timed(aligner.score, list(texts), list(patterns))
     counts = batch_launches()
     check(counts == {"K3-score": 1, "K3-dirs": 0, "K4": 0},
-          f"score width: launches {counts}")
+          f"{what}: launches {counts}")
     want = oracle_scores()
     check(list(scores[sample]) == want,
-          "score width: sampled scores differ from oracle_fill")
+          f"{what}: sampled scores differ from {fill}")
     cells = b * n * m
-    log(f"score width {b} pairs {m} x {n} local: wall {wall_ms:.1f} ms, "
-        f"{cells / wall_ms / 1e6:.2f} GCUPS end to end, launches {counts}; "
-        f"{len(sample)} sampled scores == oracle_fill")
+    beside = (f" (linear, phase 8: {linear['wall_ms']:.1f} ms, "
+              f"{linear['gcups_wall']:.2f} GCUPS)" if linear else "")
+    log(f"{what} {b} pairs {m} x {n} local: wall {wall_ms:.1f} ms, "
+        f"{cells / wall_ms / 1e6:.2f} GCUPS end to end{beside}, launches "
+        f"{counts}; {len(sample)} sampled scores == {fill}")
 
     # K3 at the bucket's shape (the JAX buckets: n_pad = 639, m_pad = 512).
     n_pad = layout.padded_width(n) - 1
@@ -1061,36 +1170,47 @@ def phase_score_width(data, oracle_scores, device="cuda"):
     sm = torch.from_numpy(DNA_5_4).to(device)
     # The kernel's launch alone: inputs transposed and outputs allocated
     # before the events.
-    launch, (got, _, _, _) = batch_fill.kernel_launch(
-        *args, sm, 5, 4, True, False, None, False)
+    launch, (got, *_) = batch_fill.kernel_launch(
+        *args, sm, gap, 4, True, False, None, False, ext)
     _, k3_ms = cuda_ms_best(launch)
     check(np.array_equal(got.cpu().numpy(), scores),
-          "score width: K3 differs from the BatchAligner run")
-    plain, plain_ms = timed(batch_fill.batch_score_plain, *args, sm, 5, 4,
-                            local=True)
+          f"{what}: K3 differs from the BatchAligner run")
+    plain, plain_ms = timed(batch_fill.batch_score_plain, *args, sm, gap, 4,
+                            local=True, gap_extend=ext)
     err = max_abs_err([got], [plain])
-    check(err == 0, f"score width: K3 max_abs_err {err}")
-    log(f"score width: K3 {k3_ms:.3f} ms (its launch alone, CUDA events, "
-        f"best of 3) = "
-        f"{cells / k3_ms / 1e6:.1f} GCUPS; plain {plain_ms:.1f} ms; exact")
+    check(err == 0, f"{what}: K3 max_abs_err {err}")
+    beside = (f" (linear {linear['gcups_kernel']:.1f})" if linear else "")
+    log(f"{what}: K3 {k3_ms:.3f} ms (its launch alone, CUDA events, "
+        f"best of 3) = {cells / k3_ms / 1e6:.1f} GCUPS{beside}; plain "
+        f"{plain_ms:.1f} ms; exact")
     nbytes = b * (n_pad + m_pad) + 3 * 4 * b   # letters, ns, ms, scores
+    ops = K3_AFFINE_OPS_PER_CELL if affine else K3_OPS_PER_CELL
     return {
         "shape": f"{b} pairs, {m} x {n} in a {m_pad} x {n_pad} bucket, "
-                 f"local DNA",
+                 f"local DNA" + (f", open {gap} extend {ext}" if affine
+                                 else ""),
         "wall_ms": wall_ms, "gcups_wall": cells / wall_ms / 1e6,
         "gcups_kernel": cells / k3_ms / 1e6, "counts": counts,
-        "K3-score": bound(nbytes, cells * K3_OPS_PER_CELL) | {
+        kid: bound(nbytes, cells * ops) | {
             "ms": k3_ms, "plain_ms": plain_ms, "err": err},
     }
 
 
-def phase_align_width(data, oracle_aligned, device="cuda"):
+def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
+                      linear=None):
     """Phase 9: BatchAligner(local=True).align on the 64k-pair workload,
-    then K3 with words and K4 on one chunk against their plain
-    versions."""
+    then K3 with words and K4 on one chunk against their plain versions;
+    with the affine (open, extend) ``costs``, phase 22 (their affine
+    instances), printed beside phase 9's result ``linear``."""
     texts, patterns, sample = data
     b, size, _ = ALIGN_WIDTH
-    aligner = BatchAligner(DNA_5_4, 4, 5, local=True, device=device)
+    gap, ext = costs or (5, None)
+    affine = costs is not None
+    k3, k4 = ("K3-affine-dirs", "K4-affine") if affine else ("K3-dirs", "K4")
+    what = f"affine align width ({gap}/{ext})" if affine else "align width"
+    align = "oracle_align_affine" if affine else "oracle_align"
+    aligner = BatchAligner(DNA_5_4, 4, gap, local=True, gap_extend=ext,
+                           device=device)
     tile, chunk = aligner._dirs_tile_pairs(size, size)
     chunk = min(chunk, b)
     chunks = -(-b // chunk)
@@ -1101,15 +1221,17 @@ def phase_align_width(data, oracle_aligned, device="cuda"):
     counts = batch_launches()
     peak = torch.cuda.max_memory_allocated()
     check(counts == {"K3-score": 0, "K3-dirs": chunks, "K4": chunks},
-          f"align width: launches {counts}")
+          f"{what}: launches {counts}")
     want = oracle_aligned()
     bad = [int(i) for i, w in zip(sample, want)
            if not same_alignment(results[i], w)]
-    check(not bad, f"align width: pairs {bad[:10]} differ from oracle_align")
-    log(f"align width {b} pairs {size} x {size} local: wall {wall_ms:.1f} "
-        f"ms, {b / wall_ms * 1e3:.0f} pairs/s, launches {counts}, "
+    check(not bad, f"{what}: pairs {bad[:10]} differ from {align}")
+    beside = (f" (linear, phase 9: {linear['wall_ms']:.1f} ms, "
+              f"{linear['pairs_per_s']:.0f} pairs/s)" if linear else "")
+    log(f"{what} {b} pairs {size} x {size} local: wall {wall_ms:.1f} ms, "
+        f"{b / wall_ms * 1e3:.0f} pairs/s{beside}, launches {counts}, "
         f"max_memory_allocated {peak} B; {len(sample)} sampled alignments "
-        f"byte-identical to oracle_align")
+        f"byte-identical to {align}")
 
     # The first chunk, as align dispatches it.
     t_arr = np.stack(texts[:chunk]).astype(np.int8)
@@ -1119,44 +1241,78 @@ def phase_align_width(data, oracle_aligned, device="cuda"):
     sm = torch.from_numpy(DNA_5_4).to(device)
     # Each kernel's launch alone: inputs prepared and outputs allocated
     # before the events.
-    launch, out = batch_fill.kernel_launch(*args, sm, 5, 4, True, False,
-                                           tile, True)
+    launch, timed_fill = batch_fill.kernel_launch(
+        *args, sm, gap, 4, True, False, tile, True, ext)
     _, k3_ms = cuda_ms_best(launch)
+    # The wrappers on the same chunk (after the counts were read), held
+    # against the timed launch, the plain versions and the aligner's run.
+    out = batch_fill.batch_fill_dirs(*args, sm, gap, 4, local=True,
+                                     tile_pairs=tile, gap_extend=ext)
+    check(len(out) == len(timed_fill)
+          and max_abs_err(out, timed_fill) == 0,
+          f"{what}: batch_fill_dirs differs from its timed launch")
+    del timed_fill
     bis, bjs = walk_starts(*out[:3], True)
+    dirs2 = out[4] if affine else None
     max_len = 2 * size
-    launch, walked = batch_traceback.kernel_launch(
-        out[3], args[2], args[3], bis, bjs, True, False, max_len)
+    launch, timed_walk = batch_traceback.kernel_launch(
+        out[3], args[2], args[3], bis, bjs, True, False, max_len,
+        dirs2=dirs2)
     _, k4_ms = cuda_ms_best(launch)
+    walked = batch_traceback.batch_walk(out[3], args[2], args[3], bis, bjs,
+                                        True, False, max_len, dirs2=dirs2)
+    check(max_abs_err(walked, timed_walk) == 0,
+          f"{what}: batch_walk differs from its timed launch")
+    del timed_walk
     plain, k3_plain_ms = timed(batch_fill.batch_fill_dirs_plain, *args, sm,
-                               5, 4, local=True, tile_pairs=tile)
+                               gap, 4, local=True, tile_pairs=tile,
+                               gap_extend=ext)
     k3_err = max_abs_err(out, plain)
-    check(k3_err == 0, f"align width: K3-dirs max_abs_err {k3_err}")
+    check(k3_err == 0, f"{what}: K3-dirs max_abs_err {k3_err}")
     del plain
-    walked_plain, k4_plain_ms = timed(batch_traceback.batch_walk_plain,
-                                      out[3], args[2], args[3], bis, bjs,
-                                      True, False, max_len)
+    walked_plain, k4_plain_ms = timed(
+        batch_traceback.batch_walk_plain, out[3], args[2], args[3], bis, bjs,
+        True, False, max_len, dirs2=dirs2)
     k4_err = max_abs_err(walked, walked_plain)
-    check(k4_err == 0, f"align width: K4 max_abs_err {k4_err}")
+    check(k4_err == 0, f"{what}: K4 max_abs_err {k4_err}")
+    # The aligner's first chunk is these pairs: its scores and its
+    # alignments' columns (one a move) are the wrappers'.
+    check([r.score for r in results[:chunk]] == out[0].tolist()
+          and [len(r.aligned_text) for r in results[:chunk]]
+          == walked[1].tolist(),
+          f"{what}: the chunk's scores or moves differ from the aligner's")
     moves = int(walked[1].long().sum())
     cells = chunk * size * size
-    log(f"align width, one {chunk}-pair chunk: K3-dirs {k3_ms:.3f} ms "
+    log(f"{what}, one {chunk}-pair chunk: K3-dirs {k3_ms:.3f} ms "
         f"({cells / k3_ms / 1e6:.1f} GCUPS), K4 {k4_ms:.3f} ms ({moves} "
-        f"moves), each launch alone, CUDA events, best of 3; plain K3-dirs "
-        f"{k3_plain_ms:.1f} ms, plain K4 {k4_plain_ms:.1f} ms; exact")
-    words = chunk * (size // 16) * size
+        f"moves), each launch alone, CUDA events, best of 3; the wrappers' "
+        f"outputs == the launches' == the plain versions' == the aligner's "
+        f"scores and move counts; plain K3-dirs {k3_plain_ms:.1f} ms, plain "
+        f"K4 {k4_plain_ms:.1f} ms")
+    planes = 2 if affine else 1
+    words = planes * chunk * (size // 16) * size
+    # Letters, the word planes, scores and best cells.
     k3_bytes = chunk * 2 * size + 4 * words + 5 * 4 * chunk
     move_words = int((-(-walked[1].long() // 16)).sum())
-    k4_bytes = 4 * moves + 4 * move_words + 7 * 4 * chunk
-    shape = f"{chunk} pairs of {size} x {size} (one of {chunks} chunks), local DNA"
+    # A local walk reads one word a move; affine, see affine_walk_reads.
+    # Then the moves written and 7 int32 a pair (ns, ms, starts, lengths,
+    # final cursor).
+    reads = (affine_walk_reads(walked[0], walked[1], dirs2, bis, bjs, tile)
+             if affine else moves)
+    k4_bytes = 4 * reads + 4 * move_words + 7 * 4 * chunk
+    shape = (f"{chunk} pairs of {size} x {size} (one of {chunks} chunks), "
+             f"local DNA" + (f", open {gap} extend {ext}" if affine else ""))
+    k3_ops = K3_AFFINE_DIRS_OPS_PER_CELL if affine else K3_DIRS_OPS_PER_CELL
+    k4_ops = K4_AFFINE_OPS_PER_MOVE if affine else K4_OPS_PER_MOVE
     return {
         "wall_ms": wall_ms, "pairs_per_s": b / wall_ms * 1e3,
         "peak_bytes": peak, "counts": counts,
-        "K3-dirs": bound(k3_bytes, cells * K3_DIRS_OPS_PER_CELL) | {
+        k3: bound(k3_bytes, cells * k3_ops) | {
             "ms": k3_ms, "plain_ms": k3_plain_ms, "err": k3_err,
             "shape": shape},
-        "K4": bound(k4_bytes, moves * K4_OPS_PER_MOVE) | {
+        k4: bound(k4_bytes, moves * k4_ops) | {
             "ms": k4_ms, "plain_ms": k4_plain_ms, "err": k4_err,
-            "shape": shape + f", {moves} moves"},
+            "shape": shape + f", {moves} moves, {reads} 4-byte reads"},
     }
 
 
@@ -2497,6 +2653,16 @@ def run(procs):
     oracle_aligned = in_thread(lambda: [
         bindings.oracle_align(1, align_data[0][i], align_data[1][i],
                               DNA_5_4, 4, 5) for i in align_data[2]])
+    # The affine batch phases' oracle results (phases 20-22).
+    affine_expected = in_thread(batch_oracle, cases, BATCH_AFFINE)
+    oracle_scores_affine = in_thread(lambda: [
+        bindings.oracle_fill_affine(1, score_data[0][i], score_data[1][i],
+                                    DNA_5_4, 4, *BATCH_AFFINE)[0]
+        for i in score_data[2]])
+    oracle_aligned_affine = in_thread(lambda: [
+        bindings.oracle_align_affine(1, align_data[0][i], align_data[1][i],
+                                     DNA_5_4, 4, *BATCH_AFFINE)
+        for i in align_data[2]])
     ck_cases = ckpt_cases()
     ck_expected = in_thread(ckpt_oracle, ck_cases)
     affine_outputs = [procs.start(port_cli("-c", argv))
@@ -2577,6 +2743,24 @@ def run(procs):
     sf = phase_strip_full_width(fw["out"], oracle_score, long_score)
     log(f"phase 18 (the strip engine, full width): "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    aff_batch_errs = phase_batch_kernels(affine=True)
+    log(f"phase 19 (affine K3, K4 against their plain versions): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    aff_batch_counts = phase_batch_main_path(cases, affine_expected,
+                                             costs=BATCH_AFFINE)
+    log(f"phase 20 (affine batch main path): {time.time() - t0:.1f} s, "
+        f"launches {json.dumps(aff_batch_counts)}")
+    t0 = time.time()
+    asw = phase_score_width(score_data, oracle_scores_affine,
+                            costs=BATCH_AFFINE, linear=sw)
+    log(f"phase 21 (affine, full width, scores): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    aaw = phase_align_width(align_data, oracle_aligned_affine,
+                            costs=BATCH_AFFINE, linear=aw)
+    log(f"phase 22 (affine, full width, alignments): "
+        f"{time.time() - t0:.1f} s")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
     # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint
@@ -2638,29 +2822,40 @@ def run(procs):
             "library_ms": None, "shape": row["shape"],
             "plain_shape": row.get("plain_shape", row["shape"]),
         })
-    for name, source, replaces, row, full_counts in (
-        ("K3-score batch_score", "seqalign_torch/csrc/interpair.cu",
-         "seqalign_tpu/ops/pallas_fill.py:222", sw["K3-score"],
-         sw["counts"]),
-        ("K3-dirs batch_fill_dirs", "seqalign_torch/csrc/interpair.cu",
-         "seqalign_tpu/ops/pallas_fill.py:222", aw["K3-dirs"],
-         aw["counts"]),
-        ("K4 batch_walk", "seqalign_torch/csrc/batch_walk.cu",
-         "seqalign_tpu/ops/batch_traceback.py:187", aw["K4"], aw["counts"]),
+    # The batch kernels: linear (phases 6-9; K4 also walks the strip
+    # engine's single pairs, phases 17-18) and affine (phases 19-22).
+    # Each wrapper counts both instances: a phase's counts are its own.
+    strip_walks = (strip_counts["K4"] + sf["host"]["counts"]["K4"]
+                   + sf["device"]["counts"]["K4"])
+    interpair = ("seqalign_torch/csrc/interpair.cu",
+                 "seqalign_tpu/ops/pallas_fill.py:222")
+    batch_walk = ("seqalign_torch/csrc/batch_walk.cu",
+                  "seqalign_tpu/ops/batch_traceback.py:187")
+    for name, (source, replaces), counter, width, main, errs, more in (
+        ("K3-score batch_score", interpair, "K3-score", sw, batch_counts,
+         batch_errs, 0),
+        ("K3-dirs batch_fill_dirs", interpair, "K3-dirs", aw, batch_counts,
+         batch_errs, 0),
+        ("K4 batch_walk", batch_walk, "K4", aw, batch_counts, batch_errs,
+         strip_walks),
+        ("K3-affine-score batch_score (affine)", interpair, "K3-score", asw,
+         aff_batch_counts, aff_batch_errs, 0),
+        ("K3-affine-dirs batch_fill_dirs (affine, run bits)", interpair,
+         "K3-dirs", aaw, aff_batch_counts, aff_batch_errs, 0),
+        ("K4-affine batch_walk (three-state walk)", batch_walk, "K4", aaw,
+         aff_batch_counts, aff_batch_errs, 0),
     ):
         kid = name.split()[0]
-        err = max(row["err"], batch_errs[kid])
-        # K4 also walks the strip engine's single pairs (phases 17-18).
-        strip_walks = (strip_counts["K4"] + sf["host"]["counts"]["K4"]
-                       + sf["device"]["counts"]["K4"]) if kid == "K4" else 0
+        row = width[kid]
+        err = max(row["err"], errs[kid])
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": batch_counts[kid] + full_counts[kid] + strip_walks,
+            "launches": (main[counter] + width["counts"][counter] + more),
             "max_abs_err": err, "exact": err == 0,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shape": row.get("shape", sw["shape"]),
+            "library_ms": None, "shape": row.get("shape", width.get("shape")),
         })
     row = sf["K5"]
     err = max(row["err"], k5_err, k5_single_err)
@@ -2691,6 +2886,13 @@ def run(procs):
         "score_gcups_kernel": sw["gcups_kernel"],
         "align_wall_ms": aw["wall_ms"], "align_pairs_per_s": aw["pairs_per_s"],
         "align_peak_bytes": aw["peak_bytes"]}}))
+    log(json.dumps({"batch_affine": {
+        "score_wall_ms": asw["wall_ms"],
+        "score_gcups_wall": asw["gcups_wall"],
+        "score_gcups_kernel": asw["gcups_kernel"],
+        "align_wall_ms": aaw["wall_ms"],
+        "align_pairs_per_s": aaw["pairs_per_s"],
+        "align_peak_bytes": aaw["peak_bytes"]}}))
     log(json.dumps({"long_pair": {
         key: lp[key] for key in ("wall_s", "phase1_s", "phase2_s", "strips",
                                  "tiles", "peak_bytes", "tile_host_ms",

@@ -51,6 +51,8 @@
 
 #include <climits>
 
+#include "launch_error.cuh"
+
 namespace {
 
 constexpr int32_t kPadScore = -(1 << 24);

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_error.cuh"
+
 namespace {
 
 constexpr int kLeft = 0, kDiag = 1, kTop = 2, kStop = 3;

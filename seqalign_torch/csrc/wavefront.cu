@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_error.cuh"
+
 namespace {
 
 constexpr int32_t kNegInf = -(1 << 30);

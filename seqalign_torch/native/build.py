@@ -1,11 +1,11 @@
 """Build shared libraries on first use.
 
 ``build_shared`` compiles one source into ``seqalign_torch/_build/``
-under a name that carries a digest of the source and the command, so an
-edited source builds anew and a built one is reused.  A file lock keeps
-two processes from building the same library at once, and the library is
-linked to a temporary path and renamed into place, so no process ever
-maps a half-written file.  ``ensure_built`` builds the native oracle
+under a name that carries a digest of the source, its headers and the
+command, so an edited source builds anew and a built one is reused.  A
+file lock keeps two processes from building the same library at once,
+and the library is linked to a temporary path and renamed into place, so
+no process ever maps a half-written file.  ``ensure_built`` builds the native oracle
 (``oracle.cpp``) with ``g++``.
 """
 
@@ -23,15 +23,19 @@ SOURCE = os.path.join(_DIR, "oracle.cpp")
 
 
 def build_shared(name: str, source: str,
-                 command: Callable[[str], Sequence[str]]) -> str:
+                 command: Callable[[str], Sequence[str]],
+                 headers: Sequence[str] = ()) -> str:
     """Return the path of ``lib<name>.<digest>.so`` built from ``source``.
 
     ``command(out_path)`` gives the compiler's argv writing to
-    ``out_path``.  The compiler's messages go to ``<library>.log``.
-    Raises RuntimeError with the compiler's output when the build fails.
+    ``out_path``; ``headers`` are files the source includes, digested
+    with it.  The compiler's messages go to ``<library>.log``.  Raises
+    RuntimeError with the compiler's output when the build fails.
     """
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    for path in (source, *headers):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(command("OUT")).encode())
     library = os.path.join(
         BUILD_DIR, f"lib{name}.{digest.hexdigest()[:12]}.so"

@@ -7,6 +7,9 @@ cached by digest, locked, published atomically) and is loaded with
 of a kernel builds it, and ``build_all`` builds them all at once (one
 ``nvcc`` per source, started together).  ``nvcc -Xptxas -v`` writes each
 kernel's registers, shared memory and spills to ``<library>.log``.
+Every source includes ``csrc/launch_error.cuh``, so every library
+exports ``sa_error_text``, which ``check_launch`` reads to name a failed
+launch's CUDA error.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..native.build import build_shared
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 KERNELS = ("wavefront", "walk", "interpair", "batch_walk", "strip")
+HEADERS = (os.path.join(CSRC, "launch_error.cuh"),)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -43,6 +47,7 @@ def build(name: str) -> str:
         f"seqalign_{name}", source,
         lambda out: [nvcc(), ARCH, "-std=c++17", "-O3", "-Xptxas", "-v",
                      "-shared", "-Xcompiler", "-fPIC", "-o", out, source],
+        HEADERS,
     )
 
 
@@ -61,3 +66,21 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _loaded[name] = lib
         return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise RuntimeError unless ``rc``, the cudaError_t a launch of the
+    kernel library ``name`` returned, is 0.  The message carries the
+    error's name and text, e.g. ``interpair kernel launch failed:
+    cudaErrorMemoryAllocation: out of memory (cudaError_t 2)``."""
+    if rc == 0:
+        return
+    fn = library(name).sa_error_text
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+    text = ctypes.create_string_buffer(256)
+    fn(rc, text, len(text))
+    raise RuntimeError(f"{name} kernel launch failed: "
+                       f"{text.value.decode(errors='replace')} "
+                       f"(cudaError_t {rc})")

@@ -9,13 +9,18 @@ kernel body:
 * ``batch_fill_dirs`` — the scores, the best cells and the 2-bit
   direction words in the JAX layout (tiles, M/16, N, tile_pairs/128,
   128): word (t, w, j) holds rows 16w+1..16w+16 at column j+1 of pair
-  t*tile_pairs + slot, row 16w+1+r at bits 2r.
+  t*tile_pairs + slot, row 16w+1+r at bits 2r; with affine gaps also
+  the run bits ``dirs2`` in the same layout (bit 2r: the cell's left run
+  goes on, E - extend > left - open; bit 2r+1: its top run, F).
 
 Inputs are the JAX wrappers' arrays as tensors: pair-major (B, N) texts
 and (B, M) patterns (int8 or int32 letters in 0..k-1), (B,) int32
 lengths with 0 <= ns <= N and 0 <= ms <= M (pairs with ns = 0 are
 padding: their outputs are defined but meaningless), and the (k, k)
-int32 score matrix.  Linear gaps only: global, local and semi-global.
+int32 score matrix.  Linear gaps, or affine (Gotoh) ones with
+``gap_extend`` (``gap`` is then the open cost, and must be >= the
+extend cost, as the JAX ``BatchAligner`` requires): global, local and
+semi-global.
 
 For tensors on a CUDA device the wrappers launch the kernel
 (``csrc/interpair.cu``), after moving the letters to [column][pair]
@@ -29,9 +34,10 @@ import ctypes
 
 import torch
 
-from ._build import library
+from ._build import check_launch, library
 
 NEG_INF = -(1 << 30)
+NEG_HALF = NEG_INF // 2  # E and F before any gap run (affine)
 DIR_ROWS_PER_WORD = 16
 TILE_QUANTUM = 128  # tile_pairs is a multiple of this (the JAX layout)
 
@@ -41,10 +47,12 @@ def mode_code(local: bool, semi: bool) -> int:
     return 1 if local else (2 if semi else 0)
 
 
-def _check(texts, patterns, ns, ms, score_matrix, k_alpha, local, semi,
-           tile_pairs=None):
+def _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend,
+           k_alpha, local, semi, tile_pairs=None):
     if local and semi:
         raise ValueError("local and semi are exclusive")
+    if gap_extend is not None and int(gap) < int(gap_extend):
+        raise ValueError("affine gaps require gap >= gap_extend")
     if not 1 <= k_alpha <= 32:
         raise ValueError(f"alphabet size must be in 1..32, got {k_alpha}")
     if texts.dim() != 2 or patterns.dim() != 2:
@@ -82,12 +90,13 @@ def _check(texts, patterns, ns, ms, score_matrix, k_alpha, local, semi,
 
 
 def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
-                  local, semi, tile_pairs, with_dirs):
+                  local, semi, tile_pairs, with_dirs, gap_extend=None):
     """K3 on the inputs' CUDA device, ready to launch: the letters moved to
     [column][pair] int8 order and the outputs allocated.  Returns
-    (launch, (scores, best_is, best_js, dirs)); each ``launch()`` runs the
-    kernel once on the current stream, raising if the launch failed, and
-    counts nothing (the wrappers count their launches)."""
+    (launch, (scores, best_is, best_js, dirs)), with dirs2 fifth for
+    affine gaps; each ``launch()`` runs the kernel once on the current
+    stream, raising if the launch failed, and counts nothing (the
+    wrappers count their launches)."""
     device = texts.device
     b, n_cols = texts.shape
     m_rows = patterns.shape[1]
@@ -98,15 +107,20 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
     ms = ms.contiguous()
     sm = score_matrix.contiguous()
     i32 = torch.int32
+    affine = gap_extend is not None
     row = torch.empty((n_cols, b), dtype=i32, device=device)
+    frow = torch.empty((n_cols, b), dtype=i32, device=device) \
+        if affine else None
     scores = torch.empty(b, dtype=i32, device=device)
-    best_is = best_js = dirs = None
+    best_is = best_js = dirs = dirs2 = None
     if with_dirs:
         best_is = torch.empty(b, dtype=i32, device=device)
         best_js = torch.empty(b, dtype=i32, device=device)
-        dirs = torch.empty(
-            (b // tile_pairs, m_rows // DIR_ROWS_PER_WORD, n_cols,
-             tile_pairs // 128, 128), dtype=i32, device=device)
+        shape = (b // tile_pairs, m_rows // DIR_ROWS_PER_WORD, n_cols,
+                 tile_pairs // 128, 128)
+        dirs = torch.empty(shape, dtype=i32, device=device)
+        if affine:
+            dirs2 = torch.empty(shape, dtype=i32, device=device)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -116,41 +130,44 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = _kernel()(
                 texts_cp.data_ptr(), patterns_cp.data_ptr(), ns.data_ptr(),
-                ms.data_ptr(), sm.data_ptr(), k_alpha, int(gap), b, n_cols,
+                ms.data_ptr(), sm.data_ptr(), k_alpha, int(gap),
+                int(gap_extend) if affine else 0, int(affine), b, n_cols,
                 m_rows, tile_pairs or TILE_QUANTUM, mode_code(local, semi),
-                int(with_dirs), row.data_ptr(), scores.data_ptr(),
-                ptr(best_is), ptr(best_js), ptr(dirs), stream,
+                int(with_dirs), row.data_ptr(), ptr(frow), scores.data_ptr(),
+                ptr(best_is), ptr(best_js), ptr(dirs), ptr(dirs2), stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"interpair kernel launch failed: "
-                               f"cudaError_t {rc}")
+        check_launch("interpair", rc)
 
-    return launch, (scores, best_is, best_js, dirs)
+    out = (scores, best_is, best_js, dirs)
+    return launch, (out + (dirs2,) if affine else out)
 
 
 def _kernel():
     fn = library("interpair").sa_interpair_fill
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [i, i, ctypes.c_int64, i, i, i, i, i]
-                       + [p] * 6)
+        fn.argtypes = ([p] * 5 + [i, i, i, i, ctypes.c_int64, i, i, i, i, i]
+                       + [p] * 8)
         fn.restype = ctypes.c_int
     return fn
 
 
 def batch_score(texts, patterns, ns, ms, score_matrix, gap, k_alpha: int,
-                local: bool = False, semi: bool = False):
+                local: bool = False, semi: bool = False, gap_extend=None):
     """Optimal scores of a padded batch (the JAX ``batch_score_pallas``,
-    linear gaps, int32 cells).  Returns (B,) int32 on the inputs' device:
-    local scores floored at 0; padding pairs (ns = 0) score 0 (local) or
-    NEG_INF."""
-    _check(texts, patterns, ns, ms, score_matrix, k_alpha, local, semi)
+    int32 cells; affine with ``gap_extend``).  Returns (B,) int32 on the
+    inputs' device: local scores floored at 0; padding pairs (ns = 0)
+    score 0 (local) or NEG_INF."""
+    _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend, k_alpha,
+           local, semi)
     if texts.device.type == "cpu":
         return batch_score_plain(texts, patterns, ns, ms, score_matrix, gap,
-                                 k_alpha, local=local, semi=semi)
-    launch, (scores, _, _, _) = kernel_launch(
+                                 k_alpha, local=local, semi=semi,
+                                 gap_extend=gap_extend)
+    launch, out = kernel_launch(
         texts, patterns, ns, ms, score_matrix, gap, k_alpha, local, semi,
-        None, False)
+        None, False, gap_extend)
+    scores = out[0]
     launch()
     batch_score.launches += 1
     return scores
@@ -161,25 +178,29 @@ batch_score.launches = 0
 
 def batch_fill_dirs(texts, patterns, ns, ms, score_matrix, gap,
                     k_alpha: int, local: bool = False, semi: bool = False,
-                    tile_pairs: int = TILE_QUANTUM):
+                    tile_pairs: int = TILE_QUANTUM, gap_extend=None):
     """Fill with direction words (the JAX ``batch_fill_dirs_pallas``,
-    linear gaps, int32 cells).  M must be a multiple of 16 and B of
-    tile_pairs.
+    int32 cells; affine with ``gap_extend``).  M must be a multiple of 16
+    and B of tile_pairs.
 
-    Returns (scores, best_is, best_js, dirs) on the inputs' device:
-    scores (B,) as ``batch_score``; best_is/best_js (B,) the local or
-    semi best cell, the first in row-major order (0 for global, whose
-    walk starts at (m, n)); dirs (B/tile_pairs, M/16, N, tile_pairs/128,
-    128) int32 words, every word defined, padding included.
+    Returns (scores, best_is, best_js, dirs), and dirs2 fifth for affine
+    gaps, on the inputs' device: scores (B,) as ``batch_score``;
+    best_is/best_js (B,) the local or semi best cell, the first in
+    row-major order (0 for global, whose walk starts at (m, n)); dirs
+    (B/tile_pairs, M/16, N, tile_pairs/128, 128) int32 words and dirs2
+    the run bits in the same layout, every word defined, padding
+    included.
     """
-    _check(texts, patterns, ns, ms, score_matrix, k_alpha, local, semi,
-           tile_pairs)
+    _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend, k_alpha,
+           local, semi, tile_pairs)
     if texts.device.type == "cpu":
         return batch_fill_dirs_plain(texts, patterns, ns, ms, score_matrix,
                                      gap, k_alpha, local=local, semi=semi,
-                                     tile_pairs=tile_pairs)
+                                     tile_pairs=tile_pairs,
+                                     gap_extend=gap_extend)
     launch, out = kernel_launch(texts, patterns, ns, ms, score_matrix, gap,
-                                k_alpha, local, semi, tile_pairs, True)
+                                k_alpha, local, semi, tile_pairs, True,
+                                gap_extend)
     launch()
     batch_fill_dirs.launches += 1
     return out
@@ -189,60 +210,107 @@ batch_fill_dirs.launches = 0
 
 
 def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
-                semi, tile_pairs):
+                semi, tile_pairs, gap_extend=None):
     """Row-by-row fill of every pair at once, on the inputs' device.
 
     A linear-gap row resolves its left dependency with one running
     maximum: H[j] = max(T[j], H[j-1] - gap) with T = max(diag, top - gap)
     (floored at 0 for local) is cummax(T[k] + gap*k) - gap*j, with H[i, 0]
-    in front.  Returns (scores, best_is, best_js, dirs or None)."""
+    in front.  An affine row takes F elementwise from the row above; its
+    left run closes with one running maximum too: with T = max(diag, F)
+    (floored for local) and T[0] = H[i, 0], E[j] + ge*j is the running
+    maximum of T[k] - g + ge*(k+1) over k < j, and of NEG_HALF.  The
+    terms E[k] leaves out are no larger, since gap >= ge: extending E[k]
+    beats closing it and reopening.  Returns (scores, best_is, best_js,
+    dirs or None, dirs2 or None)."""
     device = texts.device
     i32 = torch.int32
     b, n_cols = texts.shape
     m_rows = patterns.shape[1]
     gap = int(gap)
+    affine = gap_extend is not None
+    ge = int(gap_extend) if affine else 0
     text = texts.long()
     pat = patterns.long()
     sm = score_matrix.reshape(-1)
     n = ns.long().clamp(max=n_cols)[:, None]
     m = ms.long().clamp(max=m_rows)
     col = torch.arange(n_cols, device=device)[None, :]  # j: DP column j+1
-    ramp = (gap * torch.arange(n_cols + 1, device=device)).to(i32)
+    ramp = ((ge if affine else gap)
+            * torch.arange(n_cols + 1, device=device)).to(i32)
     in_text = col < n
     if local or semi:
         prev = torch.zeros((b, n_cols), dtype=i32, device=device)
+    elif affine:
+        prev = (-gap - ge * col).to(i32).expand(b, n_cols)
     else:
         prev = (-gap * (col + 1)).to(i32).expand(b, n_cols)
+    f_prev = torch.full((b, n_cols), NEG_HALF, dtype=i32, device=device)
     acc = torch.full((b,), NEG_INF, dtype=i32, device=device)
     bi = torch.zeros(b, dtype=i32, device=device)
     bj = torch.zeros(b, dtype=i32, device=device)
     with_dirs = tile_pairs is not None
     if with_dirs:
-        words = torch.empty((m_rows // DIR_ROWS_PER_WORD, n_cols, b),
+        planes = 2 if affine else 1
+        words = torch.empty((planes, m_rows // DIR_ROWS_PER_WORD, n_cols, b),
                             dtype=i32, device=device)
+
+    def column0(i):  # H[i, 0]
+        if local:
+            return 0
+        if affine:
+            return 0 if i == 0 else -gap - ge * (i - 1)
+        return -gap * i
+
     for i in range(1, m_rows + 1):
-        h0 = torch.full((b, 1), 0 if local else -gap * i, dtype=i32,
-                        device=device)
-        d0 = torch.full((b, 1), 0 if local else -gap * (i - 1), dtype=i32,
-                        device=device)
+        h0 = torch.full((b, 1), column0(i), dtype=i32, device=device)
+        d0 = torch.full((b, 1), column0(i - 1), dtype=i32, device=device)
         sub = sm[pat[:, i - 1:i] * k_alpha + text]
         diag = torch.cat([d0, prev[:, :-1]], dim=1) + sub
-        t = torch.maximum(diag, prev - gap)
-        if local:
-            t = t.clamp_min(0)
-        chain = torch.cummax(torch.cat([h0, t], dim=1) + ramp, dim=1).values
-        cur = (chain - ramp)[:, 1:]
+        if affine:
+            f_ext = f_prev - ge
+            f_open = prev - gap
+            f = torch.maximum(f_ext, f_open)
+            t = torch.maximum(diag, f)
+            if local:
+                t = t.clamp_min(0)
+            # E[j] + ge*j for j = 1..N: the running maximum over the
+            # columns k < j of T[k] - gap + ge*(k+1), T[0] = H[i, 0].
+            opened = torch.cat([h0, t[:, :-1]], dim=1) - gap + ramp[1:]
+            e = (torch.cummax(opened, dim=1).values.clamp_min(NEG_HALF)
+                 - ramp[1:])
+            cur = torch.maximum(t, e)
+            gap_best = torch.maximum(e, f)
+            is_left = e >= f
+        else:
+            t = torch.maximum(diag, prev - gap)
+            if local:
+                t = t.clamp_min(0)
+            chain = torch.cummax(torch.cat([h0, t], dim=1) + ramp,
+                                 dim=1).values
+            cur = (chain - ramp)[:, 1:]
         if with_dirs:
             left = torch.cat([h0, cur[:, :-1]], dim=1)
-            gap_best = torch.maximum(prev, left) - gap
+            if not affine:
+                gap_best = torch.maximum(prev, left) - gap
+                is_left = left >= prev
             d = torch.where(diag > gap_best, 1,
-                            torch.where(left >= prev, 0, 2)).to(i32)
+                            torch.where(is_left, 0, 2)).to(i32)
             if local:
                 d = torch.where(torch.maximum(diag, gap_best) > 0, d, 3)
             r = (i - 1) % DIR_ROWS_PER_WORD
             word = d if r == 0 else word | (d << (2 * r))
+            if affine:
+                e_before = torch.cat(
+                    [torch.full((b, 1), NEG_HALF, dtype=i32, device=device),
+                     e[:, :-1]], dim=1)
+                runs = ((e_before - ge > left - gap).to(i32)
+                        | ((f_ext > f_open).to(i32) << 1))
+                word2 = runs if r == 0 else word2 | (runs << (2 * r))
             if r == DIR_ROWS_PER_WORD - 1:
-                words[(i - 1) // DIR_ROWS_PER_WORD] = word.t()
+                words[0, (i - 1) // DIR_ROWS_PER_WORD] = word.t()
+                if affine:
+                    words[1, (i - 1) // DIR_ROWS_PER_WORD] = word2.t()
         if local or semi:
             row_ok = (i <= m) if local else (m == i)
             cand = torch.where(in_text & row_ok[:, None], cur, NEG_INF)
@@ -256,32 +324,36 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
             at_n = cur.gather(1, (n - 1).clamp(min=0)).reshape(-1)
             acc = torch.where(hit, at_n, acc)
         prev = cur
+        if affine:
+            f_prev = f
     scores = acc.clamp_min(0) if local else acc
     if not with_dirs:
-        return scores, bi, bj, None
+        return scores, bi, bj, None, None
     tiles = b // tile_pairs
-    dirs = (words.reshape(m_rows // DIR_ROWS_PER_WORD, n_cols, tiles,
-                          tile_pairs)
-            .permute(2, 0, 1, 3)
-            .reshape(tiles, m_rows // DIR_ROWS_PER_WORD, n_cols,
+    dirs = (words.reshape(planes, m_rows // DIR_ROWS_PER_WORD, n_cols,
+                          tiles, tile_pairs)
+            .permute(0, 3, 1, 2, 4)
+            .reshape(planes, tiles, m_rows // DIR_ROWS_PER_WORD, n_cols,
                      tile_pairs // 128, 128)
             .contiguous())
-    return scores, bi, bj, dirs
+    return scores, bi, bj, dirs[0], dirs[1] if affine else None
 
 
 def batch_score_plain(texts, patterns, ns, ms, score_matrix, gap,
-                      k_alpha: int, local: bool = False, semi: bool = False):
+                      k_alpha: int, local: bool = False, semi: bool = False,
+                      gap_extend=None):
     """Plain PyTorch version of ``batch_score``, on the inputs' device,
     with identical outputs."""
     return _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
-                       local, semi, None)[0]
+                       local, semi, None, gap_extend)[0]
 
 
 def batch_fill_dirs_plain(texts, patterns, ns, ms, score_matrix, gap,
                           k_alpha: int, local: bool = False,
                           semi: bool = False,
-                          tile_pairs: int = TILE_QUANTUM):
+                          tile_pairs: int = TILE_QUANTUM, gap_extend=None):
     """Plain PyTorch version of ``batch_fill_dirs``, on the inputs'
     device, with identical outputs."""
-    return _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
-                       local, semi, tile_pairs)
+    out = _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
+                      local, semi, tile_pairs, gap_extend)
+    return out if gap_extend is not None else out[:4]

@@ -13,10 +13,15 @@ two differ only on a path longer than the buffer).  Move k of pair p
 sits at bits 2*(k%16) of packed word (k//16, p); words past a pair's
 last move are 0.  A start outside the words walks no move.
 
+With ``dirs2``, K3's affine run bits, the walk is the three-state Gotoh
+walk of the JAX ``batch_device_traceback(dirs2=...)``: in state H a
+LEFT/TOP move whose cell has its run bit set enters the E/F run; inside
+a run the move is forced (LEFT in E, TOP in F) before the global/semi
+edge overrides; local stops on STOP only in state H.
+
 ``batch_walk`` launches the CUDA kernel (``csrc/batch_walk.cu``) for
 tensors on a CUDA device and runs ``batch_walk_plain``, the lockstep
 walk of the JAX ``batch_device_traceback``, for tensors on the CPU.
-Linear gaps only.
 
 ``walk_packed`` walks one pair over the strip engine's (W, P) words
 (``strip_fill``, ``tiled_fill``) with the same kernel: one tile of one
@@ -31,13 +36,13 @@ import ctypes
 
 import torch
 
-from ._build import library
+from ._build import check_launch, library
 from .batch_fill import DIR_ROWS_PER_WORD, mode_code
 
 _LEFT, _DIAG, _TOP, _STOP = 0, 1, 2, 3
 
 
-def _check(dirs, ns, ms, bis, bjs, local, semi, max_len):
+def _check(dirs, ns, ms, bis, bjs, local, semi, max_len, dirs2=None):
     if local and semi:
         raise ValueError("local and semi are exclusive")
     if dirs.dtype != torch.int32 or dirs.dim() != 5 or dirs.shape[4] != 128:
@@ -45,6 +50,11 @@ def _check(dirs, ns, ms, bis, bjs, local, semi, max_len):
                          "tile_pairs/128, 128) tensor")
     if not dirs.is_contiguous():
         raise ValueError("dirs must be contiguous")
+    if dirs2 is not None and (
+            dirs2.dtype != torch.int32 or dirs2.shape != dirs.shape
+            or dirs2.device != dirs.device or not dirs2.is_contiguous()):
+        raise ValueError("dirs2 must be a contiguous int32 tensor shaped "
+                         "like dirs, on its device")
     tiles, _, _, sub_rows, _ = dirs.shape
     b = tiles * sub_rows * 128
     for name, x in (("ns", ns), ("ms", ms), ("bis", bis), ("bjs", bjs)):
@@ -62,18 +72,19 @@ def _check(dirs, ns, ms, bis, bjs, local, semi, max_len):
 
 
 def batch_walk(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
-               max_len: int):
-    """Walk every pair of the batch.
+               max_len: int, dirs2=None):
+    """Walk every pair of the batch (affine with ``dirs2``).
 
     Returns (packed, lengths, i, j) on the words' device: packed is
     (max_len/16, B) int32 moves, lengths (B,) the move counts, and i, j
     (B,) the final cursors (semi's start offset in the text is j).
     """
-    _check(dirs, ns, ms, bis, bjs, local, semi, max_len)
+    _check(dirs, ns, ms, bis, bjs, local, semi, max_len, dirs2)
     if dirs.device.type == "cpu":
         return batch_walk_plain(dirs, ns, ms, bis, bjs, local, semi,
-                                max_len)
-    launch, out = kernel_launch(dirs, ns, ms, bis, bjs, local, semi, max_len)
+                                max_len, dirs2=dirs2)
+    launch, out = kernel_launch(dirs, ns, ms, bis, bjs, local, semi, max_len,
+                                dirs2=dirs2)
     launch()
     batch_walk.launches += 1
     return out
@@ -86,14 +97,14 @@ def _kernel():
     fn = library("batch_walk").sa_batch_walk
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [ctypes.c_int64, i, i, i, i,
+        fn.argtypes = ([p] * 6 + [ctypes.c_int64, i, i, i, i,
                                   ctypes.c_int64] + [p] * 5)
         fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_launch(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
-                  max_len: int):
+                  max_len: int, dirs2=None):
     """K4 on the words' CUDA device, ready to launch: the outputs
     allocated, the move words zeroed.  Returns (launch, (packed, lengths,
     i, j)); each ``launch()`` runs the kernel once on the current stream
@@ -101,13 +112,14 @@ def kernel_launch(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
     and counts nothing (``batch_walk`` counts its launches)."""
     _, num_w, n_cols, sub_rows, _ = dirs.shape
     return _launcher(dirs, num_w, n_cols, sub_rows * 128, ns, ms, bis, bjs,
-                     local, semi, max_len)
+                     local, semi, max_len, dirs2)
 
 
 def _launcher(dirs, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
-              semi, max_len):
-    """``kernel_launch`` over words of any tile geometry: dirs holds
-    (B/tile_pairs, num_w, n_cols, tile_pairs) int32 in that order."""
+              semi, max_len, dirs2=None):
+    """``kernel_launch`` over words of any tile geometry: dirs (and
+    dirs2) hold (B/tile_pairs, num_w, n_cols, tile_pairs) int32 in that
+    order."""
     device = dirs.device
     b = ns.shape[0]
     i32 = torch.int32
@@ -121,33 +133,35 @@ def _launcher(dirs, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = _kernel()(
-                dirs.data_ptr(), ns.data_ptr(), ms.data_ptr(),
+                dirs.data_ptr(),
+                None if dirs2 is None else dirs2.data_ptr(),
+                ns.data_ptr(), ms.data_ptr(),
                 bis.data_ptr(), bjs.data_ptr(), b, num_w, n_cols,
                 tile_pairs, mode_code(local, semi), max_len,
                 packed.data_ptr(), lengths.data_ptr(), fi.data_ptr(),
                 fj.data_ptr(), stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"batch walk kernel launch failed: "
-                               f"cudaError_t {rc}")
+        check_launch("batch_walk", rc)
 
     return launch, (packed, lengths, fi, fj)
 
 
 def batch_walk_plain(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
-                     max_len: int):
+                     max_len: int, dirs2=None):
     """Plain PyTorch version of ``batch_walk``: all pairs walk in
     lockstep, one gathered word a live pair a step (a pair moves on a
     prefix of the steps, so its k-th move is made at step k), on the
     words' device, with identical outputs."""
     _, num_w, n_cols, sub_rows, _ = dirs.shape
     return _walk_plain(dirs.reshape(-1), num_w, n_cols, sub_rows * 128, ns,
-                       ms, bis, bjs, local, semi, max_len)
+                       ms, bis, bjs, local, semi, max_len,
+                       None if dirs2 is None else dirs2.reshape(-1))
 
 
 def _walk_plain(flat, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
-                semi, max_len):
-    """``batch_walk_plain`` over flat words of any tile geometry."""
+                semi, max_len, flat2=None):
+    """``batch_walk_plain`` over flat words of any tile geometry (flat2:
+    the affine run bits, or None)."""
     device = flat.device
     b = ns.shape[0]
     pair = torch.arange(b, device=device)
@@ -171,6 +185,7 @@ def _walk_plain(flat, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
     packed = torch.zeros((max_len // 16, b), dtype=torch.int32,
                          device=device)
     k = torch.zeros(b, dtype=torch.int64, device=device)
+    state = torch.zeros(b, dtype=torch.int64, device=device)
     for step in range(max_len):
         if not bool(alive.any()):
             break
@@ -178,12 +193,22 @@ def _walk_plain(flat, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
         jc = j.clamp(min=1) - 1
         at = base + ((ic // DIR_ROWS_PER_WORD) * n_cols + jc) * tile_pairs
         at = torch.where(alive, at, base)
-        d = (flat[at] >> (2 * (ic % DIR_ROWS_PER_WORD))) & 3
+        bit = 2 * (ic % DIR_ROWS_PER_WORD)
+        d = (flat[at] >> bit) & 3
+        if flat2 is not None:  # inside a gap run the move is forced
+            d = torch.where(state == 1, _LEFT,
+                            torch.where(state == 2, _TOP, d))
         if local:
-            emit = alive & (d != _STOP)
+            emit = alive & (d != _STOP)  # never STOP inside a run
         else:
             d = torch.where(j == 0, _TOP, torch.where(i == 0, _LEFT, d))
             emit = alive
+        if flat2 is not None:
+            runs = (flat2[at] >> bit) & 3
+            run_e = (d == _LEFT) & ((runs & 1) != 0)
+            run_f = (d == _TOP) & ((runs & 2) != 0)
+            state = torch.where(emit, torch.where(
+                run_e, 1, torch.where(run_f, 2, 0)), state)
         shift = 2 * (step % 16)
         packed[step // 16] |= torch.where(emit, d, 0).to(torch.int32) << shift
         k += emit

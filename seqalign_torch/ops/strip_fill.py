@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import layout
-from ._build import library
+from ._build import check_launch, library
 
 NEG_INF = -(1 << 30)
 PAD_SCORE = -(1 << 24)
@@ -206,9 +206,7 @@ def kernel_launch(text, score_matrix, pattern, gap, n, m, row_base,
                 state_out.data_ptr(), prev_out.data_ptr(), rcol.data_ptr(),
                 stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"strip fill kernel launch failed: "
-                               f"cudaError_t {rc}")
+        check_launch("strip", rc)
 
     return launch, (words, prev_out, rcol, state_out)
 

@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import check_launch, library
 
 _LEFT, _DIAG, _TOP, _STOP = 0, 1, 2, 3
 
@@ -108,8 +108,7 @@ def kernel_launch(words, rps, row_lo, col_lo, i0, j0, local, max_moves,
                 int(j0), int(state0), int(local), moves.data_ptr(),
                 move_words, result.data_ptr(), stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"walk kernel launch failed: cudaError_t {rc}")
+        check_launch("walk", rc)
 
     return launch, (moves, result)
 

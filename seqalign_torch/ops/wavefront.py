@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import layout
-from ._build import library
+from ._build import check_launch, library
 
 SLOTS = 1024           # slots of the wavefront route's strips
 ROWS_PER_SLOT = 8      # rows per slot of the wavefront route
@@ -226,9 +226,7 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
                 int(m), int(i0), int(local), int(semi), int(affine),
                 int(ckpt_every), stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"wavefront kernel launch failed: "
-                               f"cudaError_t {rc}")
+        check_launch("wavefront", rc)
 
     out = (dirs, bottom_out, rowmax, argj, snap, ckpts)
     if affine:

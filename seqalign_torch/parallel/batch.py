@@ -7,7 +7,8 @@ single GPU.  Pairs are grouped into buckets of one padded shape; K3
 device, so only scores, best cells and 2-bit packed moves come back.
 The host replays the moves through the native ``sa_emit_moves_batch``,
 byte-identical to the oracle.  Pairs with an empty sequence go to the
-native oracle.  Linear gaps only: global, local and semi-global.
+native oracle.  Linear or affine (Gotoh) gaps: global, local and
+semi-global.
 """
 
 from __future__ import annotations
@@ -24,12 +25,6 @@ from .. import config
 from ..models.base import AlignmentResult
 from ..native import bindings
 from ..ops import batch_fill, batch_traceback, layout
-
-AFFINE_NOT_PORTED = (
-    "affine gaps (gap_extend) need K3's and K4's affine variants, which "
-    "the GPU package does not have yet; align with the native oracle "
-    "(bindings.oracle_align_affine)"
-)
 
 # Device budget for one chunk's direction words; buckets of big pairs are
 # aligned in chunks under it.  Same name and default as the JAX package.
@@ -58,16 +53,19 @@ class BatchAligner:
     """Length-bucketed many-pair scorer and aligner on one device.
 
     The JAX class's constructor, with an explicit ``device`` (default
-    ``config.device()``, so ``cuda``) in place of its mesh.  On a CUDA
-    device every bucket runs through K3 and K4; the plain PyTorch
-    versions run only when ``device`` is the CPU.
+    ``config.device()``, so ``cuda``) in place of its mesh.
+    ``gap_extend``: affine (Gotoh) gap costs, a run of length L costing
+    gap_penalty + (L-1)*gap_extend, with gap_penalty >= gap_extend; None
+    is the linear model.  On a CUDA device every bucket runs through K3
+    and K4 (their affine instances with ``gap_extend``); the plain
+    PyTorch versions run only when ``device`` is the CPU.
     """
 
     def __init__(self, score_matrix: np.ndarray, alphabet_size: int,
                  gap_penalty: int, local: bool = False, semi: bool = False,
                  gap_extend: Optional[int] = None, device=None):
-        if gap_extend is not None:
-            raise ValueError(AFFINE_NOT_PORTED)
+        if gap_extend is not None and gap_penalty < gap_extend:
+            raise ValueError("affine gaps require gap_penalty >= gap_extend")
         if semi and local:
             raise ValueError("semi is exclusive with local")
         k = alphabet_size
@@ -76,6 +74,7 @@ class BatchAligner:
         self.score_matrix = layout.pack_score_matrix(sm.reshape(k, k), k)
         self.alphabet_size = k
         self.gap_penalty = int(gap_penalty)
+        self.gap_extend = None if gap_extend is None else int(gap_extend)
         self.local = local
         self.semi = semi
         self.device = torch.device(
@@ -129,12 +128,18 @@ class BatchAligner:
                 continue
             self._check_letters(t)
             self._check_letters(p)
-            if out is not None:
-                _, out[i], _ = bindings.oracle_fill(
-                    algo, t, p, self.score_matrix, k, self.gap_penalty)
+            args = (algo, t, p, self.score_matrix, k, self.gap_penalty)
+            if self.gap_extend is not None:
+                if out is not None:
+                    out[i], _ = bindings.oracle_fill_affine(
+                        *args, self.gap_extend)
+                else:
+                    results[i] = AlignmentResult(
+                        *bindings.oracle_align_affine(*args, self.gap_extend))
+            elif out is not None:
+                _, out[i], _ = bindings.oracle_fill(*args)
             else:
-                results[i] = AlignmentResult(*bindings.oracle_align(
-                    algo, t, p, self.score_matrix, k, self.gap_penalty))
+                results[i] = AlignmentResult(*bindings.oracle_align(*args))
 
     def _pack(self, idx, n_pad, m_pad, b_pad, texts, patterns):
         """Host arrays of one batch: (b_pad, n_pad) and (b_pad, m_pad) int8
@@ -181,20 +186,23 @@ class BatchAligner:
                                 len(bucket.indices), texts, patterns)
             scores = batch_fill.batch_score(
                 *self._upload(*arrays), self._sm(), self.gap_penalty,
-                self.alphabet_size, local=self.local, semi=self.semi)
+                self.alphabet_size, local=self.local, semi=self.semi,
+                gap_extend=self.gap_extend)
             out[bucket.indices] = scores.cpu().numpy()
         return out
 
-    @staticmethod
-    def _dirs_tile_pairs(n_pad: int, m_pad: int) -> tuple[int, int]:
+    def _dirs_tile_pairs(self, n_pad: int, m_pad: int) -> tuple[int, int]:
         """(tile_pairs, chunk_pairs) of an align bucket.  The kernels
         coalesce over any 32 neighbouring pairs, so the tile is only the
         unit of the JAX word layout: its smallest, 128, pads a chunk by
-        fewer than 128 pairs.  A chunk's words stay under
-        DIRS_HBM_BUDGET (at least one tile) and its pairs under
-        PIPELINE_PAIRS, rounded up to whole tiles."""
+        fewer than 128 pairs.  A chunk's words (both planes with affine
+        gaps, where the JAX class counts one) stay under DIRS_HBM_BUDGET
+        (at least one tile) and its pairs under PIPELINE_PAIRS, rounded
+        up to whole tiles.  The chunking changes no output: every pair
+        is filled and walked on its own."""
         tile = batch_fill.TILE_QUANTUM
-        words_bytes = (m_pad // 16) * n_pad * 4
+        planes = 1 if self.gap_extend is None else 2
+        words_bytes = planes * (m_pad // 16) * n_pad * 4
         chunk = max(tile, DIRS_HBM_BUDGET // words_bytes // tile * tile)
         return tile, min(chunk, -(-PIPELINE_PAIRS // tile) * tile)
 
@@ -251,10 +259,12 @@ class BatchAligner:
         t_arr, p_arr, ns, ms = self._pack(idx, n_pad, m_pad, b_pad, texts,
                                           patterns)
         t_dev, p_dev, ns_dev, ms_dev = self._upload(t_arr, p_arr, ns, ms)
-        scores, bis, bjs, dirs = batch_fill.batch_fill_dirs(
+        out = batch_fill.batch_fill_dirs(
             t_dev, p_dev, ns_dev, ms_dev, self._sm(), self.gap_penalty,
             self.alphabet_size, local=self.local, semi=self.semi,
-            tile_pairs=tile_pairs)
+            tile_pairs=tile_pairs, gap_extend=self.gap_extend)
+        scores, bis, bjs, dirs = out[:4]
+        dirs2 = out[4] if self.gap_extend is not None else None
         if self.local:
             # No-match pairs (best <= 0): an empty alignment with the
             # reference's cursor sentinels.
@@ -263,7 +273,8 @@ class BatchAligner:
             bjs = torch.where(matched, bjs, 0)
         max_len = -(-(n_pad + m_pad) // 16) * 16
         packed, lengths, _, j_fin = batch_traceback.batch_walk(
-            dirs, ns_dev, ms_dev, bis, bjs, self.local, self.semi, max_len)
+            dirs, ns_dev, ms_dev, bis, bjs, self.local, self.semi, max_len,
+            dirs2=dirs2)
         outs = (scores, bis, bjs, packed, lengths, j_fin)
         done = None
         if self.device.type == "cuda":
@@ -294,9 +305,12 @@ class BatchAligner:
             start_is, start_js = bis, bjs
         else:
             start_is, start_js = ms, ns
+        # Mode 2 replays affine walks in every alignment mode, as the JAX
+        # class does.
+        mode = 2 if self.gap_extend is not None else (1 if self.local else 0)
         at_all, ap_all, st_all, sp_all = bindings.emit_moves_batch(
-            packed.T, lengths, start_is, start_js, 1 if self.local else 0,
-            t_arr, p_arr, self.alphabet_size)
+            packed.T, lengths, start_is, start_js, mode, t_arr, p_arr,
+            self.alphabet_size)
         lengths = lengths.tolist()
         scores = scores.tolist()
         if self.semi:

@@ -159,8 +159,8 @@ def test_cpu_device_launches_no_kernel():
 
 def test_refuses_what_it_cannot_run():
     sm = score_matrix(4)
-    with pytest.raises(ValueError, match="affine"):
-        BatchAligner(sm, 4, 5, gap_extend=2, device="cpu")
+    with pytest.raises(ValueError, match="gap_penalty >= gap_extend"):
+        BatchAligner(sm, 4, 1, gap_extend=2, device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
         BatchAligner(sm, 4, 5, local=True, semi=True, device="cpu")
     with pytest.raises(ValueError, match="127"):
