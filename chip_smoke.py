@@ -9,9 +9,11 @@ Phases, in order; any failed check raises and the script exits non-zero
 without its last line:
 
 1. Build the CUDA kernels (K1 ``csrc/wavefront.cu``, K2 ``csrc/walk.cu``,
-   K3 ``csrc/interpair.cu``, K4 ``csrc/batch_walk.cu``, K5
-   ``csrc/strip.cu``) and the native oracle from the sources, all at
-   once, and print the build time and ptxas's lines.
+   K3 ``csrc/interpair.cu``, K3-cell16 ``csrc/interpair16.cu``, K4
+   ``csrc/batch_walk.cu``, K5 ``csrc/strip.cu``, the probes P2
+   ``csrc/probe_dpx16.cu`` and P1 ``csrc/probe_chase.cu``) and the native
+   oracle from the sources, all at once, and print the build time and
+   ptxas's lines.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
@@ -159,11 +161,38 @@ without its last line:
     phase 9's workload, 1,024 sampled pairs byte-identical to the
     oracle; then affine K3 with words and affine K4 timed on one chunk
     and held against their plain versions there.
-23. A JSON line of the kernels, the card's name and power limit from
+23. K3-cell16 (the int16 cell mode, two pairs a thread) against its
+    plain version and against the int32 K3, on the card: phase 6's and
+    19's cases (global, local and semi-global, DNA and protein, linear
+    and affine at both costs, ragged lengths with padding pairs, n not a
+    multiple of 128, an odd batch score-only, tile_pairs 128 and 256) and
+    the +-127 matrix at the largest shape the gate admits with gap 127.
+    Every score, best cell, word and run-bit word exact, and equal to the
+    int32 K3's but the padding pairs' scores (NEG_16 for NEG_INF).
+24. The int16 batch path: phase 7's and 20's mixes under
+    ``SEQALIGN_INT16_CELLS=1`` (refused with the JAX ValueError where the
+    gate does not admit a bucket) and ``auto`` (a spy and the launch
+    counters show each bucket in K3-cell16 exactly when the gate admits
+    it; every result the oracle's); then phases 8, 9, 21 and 22 under
+    ``1``: every score and alignment equal to that phase's int32 run's,
+    K3-cell16 timed beside its K3 and held against its plain version.
+25. P2 (``python -m seqalign_torch.probes.dpx16``): each packed int16
+    formulation of ``scripts/mosaic_micro_probe.py``'s patterns and each
+    DPX intrinsic on 2^24 random words against its plain version, its
+    rate beside its int32 counterpart's (the DPX16_OK / DPX16_FAIL
+    lines); each rate kernel's loop instructions from ``cuobjdump
+    -sass`` (DPX16_SASS lines), and __viaddmax_s32's rate in operations
+    beside the int32 peak of the bounds.
+26. P1 (``python -m seqalign_torch.probes.walk_costs``): the JAX probe's
+    dependent chain of loads over tables in shared memory (32 KiB, 128
+    KiB), L2 (16 MiB) and HBM (1 GiB), each result against its plain
+    version, ns a step.
+27. A JSON line of the kernels, the card's name and power limit from
     nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18 and 20-22
-runs in subprocesses and threads beside the device phases.
+(and 24, which reuses 7-9's and 20-22's) runs in subprocesses and threads
+beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
 
@@ -190,16 +219,25 @@ from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
                                 checkpoint, direct, layout, strip_fill, tiled,
                                 walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
+from seqalign_torch.probes import dpx16, walk_costs
 from seqalign_torch.types import Request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  Memory:
 # 3.35 TB/s.  int32: the 67 TFLOP/s float32 rate is 132 SMs x 128 lanes
-# x 2 (an FMA counts twice) x 1.98 GHz; an SM has 64 int32 lanes, so
-# int32 add/max/compare/select issue at a quarter of that figure.
+# x 2 (an FMA counts twice) x 1.98 GHz.  An SM has 64 int32 lanes, and a
+# three-operand integer instruction (DPX add-max or max of three, IADD3,
+# LOP3) does two operations, as an FMA does: 132 x 64 x 2 x 1.98 GHz =
+# 33.5 T int32 operations a second.  P2 (``python -m
+# seqalign_torch.probes.dpx16 --sass``) runs __viaddmax_s32 at one
+# VIADDMNMX an op, 16.2 T instructions a second on an NVIDIA H100 80GB
+# HBM3 at 700 W (32.3 T operations, 97 % of this figure); no variant it
+# times runs more operations a second.  Packed int16: two lanes an
+# instruction at the same instruction rate (P2: 32.2-32.3 T results a
+# second for __viaddmax_s16x2, __vimax3_s16x2 and __vimax_s16x2_relu).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 67e12 / 2
 # Integer operations per cell of the linear fill: H = max(diag + s,
 # max(top, left) - gap) is 4; the 2-bit direction (two compares, two
 # selects, a shift and an or into the word) is 6.
@@ -485,6 +523,7 @@ def ptxas_summary(path):
         r"ptxas info\s+: Used (\d+) registers"
     )
     lines = []
+    probes = []  # P2's instances, summarised in one line
     for name, stack, st, ld, regs in pattern.findall(text):
         args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", name)
         if args:
@@ -496,20 +535,29 @@ def ptxas_summary(path):
                      f"dirs {args[3]}>")
         elif args := re.search(r"walk_skewed_kernelILb(\d)E", name):
             label = f"<affine {args[1]}>"
-        elif args := re.search(r"interpair_kernelILi(\d)ELb(\d)ELb(\d)E",
-                               name):
+        elif args := re.search(r"interpair(?:16)?_kernelILi(\d)ELb(\d)ELb"
+                               r"(\d)E", name):
             label = (f"<mode {args[1]}, dirs {args[2]}, "
                      f"affine {args[3]}>")
         elif args := re.search(r"batch_walk_kernelILi(\d)ELb(\d)E", name):
             label = f"<mode {args[1]}, affine {args[2]}>"
+        elif re.search(r"(apply|rate)_kernelILi\d+ELb\dE", name):
+            probes.append((int(regs), int(st)))
+            continue
         else:
             label = ""
         kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel|"
-                           r"interpair_kernel|batch_walk_kernel|"
-                           r"strip_fill_kernel)", name)
+                           r"interpair16_kernel|interpair_kernel|"
+                           r"batch_walk_kernel|strip_fill_kernel|"
+                           r"chase_shared|chase_global)", name)
         lines.append(f"  {kernel[1] if kernel else name}{label}: {regs} "
                      f"registers, stack {stack} B, spill stores {st} B, "
                      f"loads {ld} B")
+    if probes:
+        regs = [r for r, _ in probes]
+        lines.append(f"  apply_kernel/rate_kernel: {len(probes)} instances, "
+                     f"{min(regs)}-{max(regs)} registers, spill stores "
+                     f"{max(st for _, st in probes)} B at most")
     return lines
 
 
@@ -823,13 +871,17 @@ def phase_full_width(oracle_score):
 def batch_launches():
     return {"K3-score": batch_fill.batch_score.launches,
             "K3-dirs": batch_fill.batch_fill_dirs.launches,
-            "K4": batch_traceback.batch_walk.launches}
+            "K4": batch_traceback.batch_walk.launches,
+            "K3-cell16-score": batch_fill.batch_score.cell16_launches,
+            "K3-cell16-dirs": batch_fill.batch_fill_dirs.cell16_launches}
 
 
 def reset_batch_launches():
     batch_fill.batch_score.launches = 0
     batch_fill.batch_fill_dirs.launches = 0
     batch_traceback.batch_walk.launches = 0
+    batch_fill.batch_score.cell16_launches = 0
+    batch_fill.batch_fill_dirs.cell16_launches = 0
 
 
 BATCH_PLAIN = ((batch_fill, "batch_score_plain"),
@@ -1099,8 +1151,10 @@ def phase_batch_main_path(cases, oracle, device="cuda", costs=None):
             bad = [i for i, (r, w) in enumerate(zip(results, want_aligned))
                    if not same_alignment(r, w)]
             check(not bad, f"{what}: pairs {bad[:10]} differ from {align}")
-            check(all(delta[kid] >= 1 for kid in delta),
-                  f"{what}: launches {delta}")
+            check(all(delta[kid] >= 1 for kid in ("K3-score", "K3-dirs",
+                                                   "K4"))
+                  and delta["K3-cell16-score"] == delta["K3-cell16-dirs"]
+                  == 0, f"{what}: launches {delta}")
             log(f"{what}: {len(texts)} pairs, score {t1 - t0:.2f} s, align "
                 f"{t2 - t1:.2f} s, launches {delta}; scores == {fill}, "
                 f"alignments byte-identical to {align}")
@@ -1128,35 +1182,52 @@ def align_width_data():
 
 
 def phase_score_width(data, oracle_scores, device="cuda", costs=None,
-                      linear=None):
+                      linear=None, int32=None):
     """Phase 8: BatchAligner(local=True).score at bench.py's headline,
     then K3 at its bucket's shape against its plain version; with the
     affine (open, extend) ``costs``, phase 21, printed beside phase 8's
-    result ``linear``."""
+    result ``linear``.  With ``int32``, the result of phase 8 or 21 at the
+    same costs, phase 24: the same under SEQALIGN_INT16_CELLS=1 through
+    K3-cell16, every score equal to that run's, K3-cell16 timed beside
+    its K3."""
     texts, patterns, sample = data
     b, n, m, _ = SCORE_WIDTH
     gap, ext = costs or (5, None)
     affine = costs is not None
-    kid = "K3-affine-score" if affine else "K3-score"
+    cell16 = int32 is not None
+    kid32 = "K3-affine-score" if affine else "K3-score"
+    kid = kid32.replace("K3-", "K3-cell16-") if cell16 else kid32
     what = f"affine score width ({gap}/{ext})" if affine else "score width"
+    what = f"int16 {what}" if cell16 else what
     fill = "oracle_fill_affine" if affine else "oracle_fill"
     aligner = BatchAligner(DNA_5_4, 4, gap, local=True, gap_extend=ext,
                            device=device)
     reset_batch_launches()
-    with plain_versions_forbidden():
+    with plain_versions_forbidden(), environment(
+            SEQALIGN_INT16_CELLS="1" if cell16 else "0"):
         scores, wall_ms = timed(aligner.score, list(texts), list(patterns))
     counts = batch_launches()
-    check(counts == {"K3-score": 1, "K3-dirs": 0, "K4": 0},
+    check(counts == ({"K3-score": 0, "K3-dirs": 0, "K4": 0,
+                      "K3-cell16-score": 1, "K3-cell16-dirs": 0} if cell16
+                     else {"K3-score": 1, "K3-dirs": 0, "K4": 0,
+                           "K3-cell16-score": 0, "K3-cell16-dirs": 0}),
           f"{what}: launches {counts}")
     want = oracle_scores()
     check(list(scores[sample]) == want,
           f"{what}: sampled scores differ from {fill}")
+    if cell16:
+        check(np.array_equal(scores, int32["scores"]),
+              f"{what}: scores differ from the int32 run's")
     cells = b * n * m
     beside = (f" (linear, phase 8: {linear['wall_ms']:.1f} ms, "
               f"{linear['gcups_wall']:.2f} GCUPS)" if linear else "")
+    if cell16:
+        beside = (f" (int32: {int32['wall_ms']:.1f} ms, "
+                  f"{int32['gcups_wall']:.2f} GCUPS)")
     log(f"{what} {b} pairs {m} x {n} local: wall {wall_ms:.1f} ms, "
         f"{cells / wall_ms / 1e6:.2f} GCUPS end to end{beside}, launches "
-        f"{counts}; {len(sample)} sampled scores == {fill}")
+        f"{counts}; {len(sample)} sampled scores == {fill}"
+        + ("; all scores == the int32 run's" if cell16 else ""))
 
     # K3 at the bucket's shape (the JAX buckets: n_pad = 639, m_pad = 512).
     n_pad = layout.padded_width(n) - 1
@@ -1171,16 +1242,22 @@ def phase_score_width(data, oracle_scores, device="cuda", costs=None,
     # The kernel's launch alone: inputs transposed and outputs allocated
     # before the events.
     launch, (got, *_) = batch_fill.kernel_launch(
-        *args, sm, gap, 4, True, False, None, False, ext)
+        *args, sm, gap, 4, True, False, tile_pairs=None, with_dirs=False,
+        gap_extend=ext, cell16=cell16)
     _, k3_ms = cuda_ms_best(launch)
     check(np.array_equal(got.cpu().numpy(), scores),
           f"{what}: K3 differs from the BatchAligner run")
     plain, plain_ms = timed(batch_fill.batch_score_plain, *args, sm, gap, 4,
-                            local=True, gap_extend=ext)
+                            local=True, gap_extend=ext, cell16=cell16)
     err = max_abs_err([got], [plain])
-    check(err == 0, f"{what}: K3 max_abs_err {err}")
+    check(err == 0, f"{what}: {kid} max_abs_err {err}")
     beside = (f" (linear {linear['gcups_kernel']:.1f})" if linear else "")
-    log(f"{what}: K3 {k3_ms:.3f} ms (its launch alone, CUDA events, "
+    if cell16:
+        k3_32 = int32[kid32]["ms"]
+        beside = (f" (int32 K3 in phase {21 if affine else 8}: {k3_32:.3f} "
+                  f"ms, {cells / k3_32 / 1e6:.1f} GCUPS; int16 / int32 = "
+                  f"{k3_ms / k3_32:.3f})")
+    log(f"{what}: {kid} {k3_ms:.3f} ms (its launch alone, CUDA events, "
         f"best of 3) = {cells / k3_ms / 1e6:.1f} GCUPS{beside}; plain "
         f"{plain_ms:.1f} ms; exact")
     nbytes = b * (n_pad + m_pad) + 3 * 4 * b   # letters, ns, ms, scores
@@ -1188,26 +1265,36 @@ def phase_score_width(data, oracle_scores, device="cuda", costs=None,
     return {
         "shape": f"{b} pairs, {m} x {n} in a {m_pad} x {n_pad} bucket, "
                  f"local DNA" + (f", open {gap} extend {ext}" if affine
-                                 else ""),
+                                 else "") + (", int16 cells" if cell16
+                                             else ""),
         "wall_ms": wall_ms, "gcups_wall": cells / wall_ms / 1e6,
         "gcups_kernel": cells / k3_ms / 1e6, "counts": counts,
-        kid: bound(nbytes, cells * ops) | {
+        "scores": scores,
+        kid: bound(nbytes, cells * ops, packed=cell16) | {
             "ms": k3_ms, "plain_ms": plain_ms, "err": err},
     }
 
 
 def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
-                      linear=None):
+                      linear=None, int32=None):
     """Phase 9: BatchAligner(local=True).align on the 64k-pair workload,
     then K3 with words and K4 on one chunk against their plain versions;
     with the affine (open, extend) ``costs``, phase 22 (their affine
-    instances), printed beside phase 9's result ``linear``."""
+    instances), printed beside phase 9's result ``linear``.  With
+    ``int32``, the result of phase 9 or 22 at the same costs, phase 24:
+    the same under SEQALIGN_INT16_CELLS=1 through K3-cell16 (and K4 on its
+    words), every alignment byte-identical to that run's, K3-cell16 timed
+    beside its K3."""
     texts, patterns, sample = data
     b, size, _ = ALIGN_WIDTH
     gap, ext = costs or (5, None)
     affine = costs is not None
-    k3, k4 = ("K3-affine-dirs", "K4-affine") if affine else ("K3-dirs", "K4")
+    cell16 = int32 is not None
+    k3_32, k4 = (("K3-affine-dirs", "K4-affine") if affine
+                 else ("K3-dirs", "K4"))
+    k3 = k3_32.replace("K3-", "K3-cell16-") if cell16 else k3_32
     what = f"affine align width ({gap}/{ext})" if affine else "align width"
+    what = f"int16 {what}" if cell16 else what
     align = "oracle_align_affine" if affine else "oracle_align"
     aligner = BatchAligner(DNA_5_4, 4, gap, local=True, gap_extend=ext,
                            device=device)
@@ -1216,22 +1303,38 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
     chunks = -(-b // chunk)
     torch.cuda.reset_peak_memory_stats()
     reset_batch_launches()
-    with plain_versions_forbidden():
+    with plain_versions_forbidden(), environment(
+            SEQALIGN_INT16_CELLS="1" if cell16 else "0"):
         results, wall_ms = timed(aligner.align, texts, patterns)
     counts = batch_launches()
     peak = torch.cuda.max_memory_allocated()
-    check(counts == {"K3-score": 0, "K3-dirs": chunks, "K4": chunks},
+    check(counts == {"K3-score": 0, "K3-dirs": 0 if cell16 else chunks,
+                     "K4": chunks, "K3-cell16-score": 0,
+                     "K3-cell16-dirs": chunks if cell16 else 0},
           f"{what}: launches {counts}")
     want = oracle_aligned()
     bad = [int(i) for i, w in zip(sample, want)
            if not same_alignment(results[i], w)]
     check(not bad, f"{what}: pairs {bad[:10]} differ from {align}")
+    if cell16:
+        bad = [i for i, (r, w) in enumerate(zip(results, int32["results"]))
+               if not same_alignment(r, (w.aligned_text, w.aligned_pattern,
+                                         w.start_in_aligned_text,
+                                         w.start_in_aligned_pattern,
+                                         w.score))]
+        check(not bad, f"{what}: pairs {bad[:10]} differ from the int32 "
+                       f"run's")
     beside = (f" (linear, phase 9: {linear['wall_ms']:.1f} ms, "
               f"{linear['pairs_per_s']:.0f} pairs/s)" if linear else "")
+    if cell16:
+        beside = (f" (int32: {int32['wall_ms']:.1f} ms, "
+                  f"{int32['pairs_per_s']:.0f} pairs/s)")
     log(f"{what} {b} pairs {size} x {size} local: wall {wall_ms:.1f} ms, "
         f"{b / wall_ms * 1e3:.0f} pairs/s{beside}, launches {counts}, "
         f"max_memory_allocated {peak} B; {len(sample)} sampled alignments "
-        f"byte-identical to {align}")
+        f"byte-identical to {align}"
+        + ("; every alignment byte-identical to the int32 run's" if cell16
+           else ""))
 
     # The first chunk, as align dispatches it.
     t_arr = np.stack(texts[:chunk]).astype(np.int8)
@@ -1242,12 +1345,14 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
     # Each kernel's launch alone: inputs prepared and outputs allocated
     # before the events.
     launch, timed_fill = batch_fill.kernel_launch(
-        *args, sm, gap, 4, True, False, tile, True, ext)
+        *args, sm, gap, 4, True, False, tile_pairs=tile, with_dirs=True,
+        gap_extend=ext, cell16=cell16)
     _, k3_ms = cuda_ms_best(launch)
     # The wrappers on the same chunk (after the counts were read), held
     # against the timed launch, the plain versions and the aligner's run.
     out = batch_fill.batch_fill_dirs(*args, sm, gap, 4, local=True,
-                                     tile_pairs=tile, gap_extend=ext)
+                                     tile_pairs=tile, gap_extend=ext,
+                                     cell16=cell16)
     check(len(out) == len(timed_fill)
           and max_abs_err(out, timed_fill) == 0,
           f"{what}: batch_fill_dirs differs from its timed launch")
@@ -1266,9 +1371,9 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
     del timed_walk
     plain, k3_plain_ms = timed(batch_fill.batch_fill_dirs_plain, *args, sm,
                                gap, 4, local=True, tile_pairs=tile,
-                               gap_extend=ext)
+                               gap_extend=ext, cell16=cell16)
     k3_err = max_abs_err(out, plain)
-    check(k3_err == 0, f"{what}: K3-dirs max_abs_err {k3_err}")
+    check(k3_err == 0, f"{what}: {k3} max_abs_err {k3_err}")
     del plain
     walked_plain, k4_plain_ms = timed(
         batch_traceback.batch_walk_plain, out[3], args[2], args[3], bis, bjs,
@@ -1283,12 +1388,18 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
           f"{what}: the chunk's scores or moves differ from the aligner's")
     moves = int(walked[1].long().sum())
     cells = chunk * size * size
-    log(f"{what}, one {chunk}-pair chunk: K3-dirs {k3_ms:.3f} ms "
-        f"({cells / k3_ms / 1e6:.1f} GCUPS), K4 {k4_ms:.3f} ms ({moves} "
-        f"moves), each launch alone, CUDA events, best of 3; the wrappers' "
-        f"outputs == the launches' == the plain versions' == the aligner's "
-        f"scores and move counts; plain K3-dirs {k3_plain_ms:.1f} ms, plain "
-        f"K4 {k4_plain_ms:.1f} ms")
+    beside = ""
+    if cell16:
+        k3_32_ms = int32[k3_32]["ms"]
+        beside = (f" (int32 K3 in phase {22 if affine else 9}: "
+                  f"{k3_32_ms:.3f} ms; int16 / int32 = "
+                  f"{k3_ms / k3_32_ms:.3f})")
+    log(f"{what}, one {chunk}-pair chunk: {k3} {k3_ms:.3f} ms "
+        f"({cells / k3_ms / 1e6:.1f} GCUPS){beside}, K4 {k4_ms:.3f} ms "
+        f"({moves} moves), each launch alone, CUDA events, best of 3; the "
+        f"wrappers' outputs == the launches' == the plain versions' == the "
+        f"aligner's scores and move counts; plain {k3} {k3_plain_ms:.1f} ms, "
+        f"plain K4 {k4_plain_ms:.1f} ms")
     planes = 2 if affine else 1
     words = planes * chunk * (size // 16) * size
     # Letters, the word planes, scores and best cells.
@@ -1301,19 +1412,280 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
              if affine else moves)
     k4_bytes = 4 * reads + 4 * move_words + 7 * 4 * chunk
     shape = (f"{chunk} pairs of {size} x {size} (one of {chunks} chunks), "
-             f"local DNA" + (f", open {gap} extend {ext}" if affine else ""))
+             f"local DNA" + (f", open {gap} extend {ext}" if affine else "")
+             + (", int16 cells" if cell16 else ""))
     k3_ops = K3_AFFINE_DIRS_OPS_PER_CELL if affine else K3_DIRS_OPS_PER_CELL
     k4_ops = K4_AFFINE_OPS_PER_MOVE if affine else K4_OPS_PER_MOVE
     return {
         "wall_ms": wall_ms, "pairs_per_s": b / wall_ms * 1e3,
-        "peak_bytes": peak, "counts": counts,
-        k3: bound(k3_bytes, cells * k3_ops) | {
+        "peak_bytes": peak, "counts": counts, "results": results,
+        k3: bound(k3_bytes, cells * k3_ops, packed=cell16) | {
             "ms": k3_ms, "plain_ms": k3_plain_ms, "err": k3_err,
             "shape": shape},
         k4: bound(k4_bytes, moves * k4_ops) | {
             "ms": k4_ms, "plain_ms": k4_plain_ms, "err": k4_err,
             "shape": shape + f", {moves} moves, {reads} 4-byte reads"},
     }
+
+
+def int16_real(got16, got32, ns, what):
+    """K3-cell16 against the int32 K3 on the same inputs: every output
+    equal, except the scores of padding pairs (ns = 0), NEG_16 where the
+    int32 kernel gives NEG_INF (0 both for local)."""
+    pad = ns == 0
+    for i, (a, b) in enumerate(zip(got16, got32)):
+        if i == 0:
+            check(torch.equal(a[~pad], b[~pad]),
+                  f"{what}: scores differ from the int32 K3's")
+            check(bool(((a[pad] == batch_fill.NEG_16)
+                        & (b[pad] == batch_fill.NEG_INF)
+                        | (a[pad] == 0) & (b[pad] == 0)).all()),
+                  f"{what}: padding scores are not NEG_16 / NEG_INF")
+        else:
+            check(torch.equal(a, b), f"{what}: output {i} differs from "
+                                     f"the int32 K3's")
+
+
+def phase_cell16_kernels(device="cuda", b=512, n=300, m=208):
+    """Phase 23: K3-cell16 (score-only and with words, linear and affine)
+    against its plain version and against the int32 K3, on phase 6's and
+    19's cases (an odd batch score-only), then the near-cap case."""
+    rng = np.random.default_rng(2028)
+    ids = ("K3-cell16-score", "K3-cell16-dirs", "K3-cell16-affine-score",
+           "K3-cell16-affine-dirs")
+    errs = dict.fromkeys(ids, 0)
+    cases = []
+    for k in (4, 23):
+        sm = score_matrix(k)
+        costs = (((5 if k == 4 else 10), None),
+                 *BATCH_AFFINE_KERNEL_COSTS[k])
+        for mode in MODES:
+            for gap, ext in costs:
+                cases.append((k, sm, mode, gap, ext, b, n, m))
+    # +-127 at the largest shape the gate admits with gap 127 (the JAX
+    # package's test_int16_near_cap_exact).
+    near = np.where(np.eye(4, dtype=bool), 127, -127).astype(np.int32)
+    cases += [(4, near, mode, 127, None, 256, 48, 32) for mode in MODES]
+    for k, sm_np, mode, gap, ext, bb, nn, mm in cases:
+        check(batch_fill.int16_cells_ok(nn, mm, sm_np, k, gap, ext),
+              f"int16 case {k} {mode} {gap}/{ext} outside the gate")
+        sm = torch.from_numpy(sm_np).to(device)
+        kw = MODES[mode]
+        kid_s, kid_d = ids[2:] if ext is not None else ids[:2]
+        what = f"K3-cell16 {mode} k={k} {gap}/{ext} {mm} x {nn}"
+        texts, patterns, ns, ms = batch_case(rng, bb, nn, mm, k, device)
+        if bb == 256:  # near cap: every real pair whole
+            ns[:bb - bb // 8] = nn
+            ms[:bb - bb // 8] = mm
+        # Score-only: an odd batch (one padding pair added on the card)
+        # and a width that is not a multiple of 16.
+        sargs = (texts[1:], patterns[1:, :mm - 3].contiguous(), ns[1:],
+                 ms[1:].clamp(max=mm - 3))
+        got = batch_fill.batch_score(*sargs, sm, gap, k, gap_extend=ext,
+                                     cell16=True, **kw)
+        torch.cuda.synchronize()
+        plain = batch_fill.batch_score_plain(*sargs, sm, gap, k,
+                                             gap_extend=ext, cell16=True,
+                                             **kw)
+        err = max_abs_err([got], [plain])
+        check(err == 0, f"{what} score: max_abs_err {err}")
+        errs[kid_s] = max(errs[kid_s], err)
+        int16_real([got], [batch_fill.batch_score(
+            *sargs, sm, gap, k, gap_extend=ext, **kw)], sargs[2],
+            f"{what} score")
+        for tile in (128, 256):
+            if bb % tile:
+                continue
+            out = batch_fill.batch_fill_dirs(
+                texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
+                gap_extend=ext, cell16=True, **kw)
+            torch.cuda.synchronize()
+            plain = batch_fill.batch_fill_dirs_plain(
+                texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
+                gap_extend=ext, cell16=True, **kw)
+            check(len(out) == len(plain) == (4 if ext is None else 5),
+                  f"{what}: {len(out)} outputs")
+            derr = max_abs_err(out, plain)
+            check(derr == 0, f"{what} tile {tile}: max_abs_err {derr}")
+            errs[kid_d] = max(errs[kid_d], derr)
+            int16_real(out, batch_fill.batch_fill_dirs(
+                texts, patterns, ns, ms, sm, gap, k, tile_pairs=tile,
+                gap_extend=ext, **kw), ns, f"{what} tile {tile}")
+        log(f"{what}: {bb} pairs, scores (odd batch), best cells, words"
+            f"{' and run bits' if ext is not None else ''} == the plain "
+            f"version's and the int32 K3's (padding scores NEG_16)")
+    return errs
+
+
+def int16_routes():
+    """A spy on the batch fills' launches: (function, n_cols, m_rows,
+    cell16) of every K3 launch the wrappers prepare in the block (through
+    ``batch_fill.kernel_launch``, so the wrappers and their counters stay
+    as they are).  Returns (routes, restore)."""
+    routes = []
+    real = batch_fill.kernel_launch
+
+    def spy(texts, patterns, *args, **kwargs):
+        routes.append(("batch_fill_dirs" if kwargs["with_dirs"]
+                       else "batch_score", texts.shape[1], patterns.shape[1],
+                       kwargs.get("cell16", False)))
+        return real(texts, patterns, *args, **kwargs)
+
+    batch_fill.kernel_launch = spy
+
+    def restore():
+        batch_fill.kernel_launch = real
+
+    return routes, restore
+
+
+def align_pad(length):
+    return max(128, -(-length // 128) * 128)
+
+
+def phase_cell16_main_path(cases, oracle, device="cuda", costs=None):
+    """Phase 24, the mix: BatchAligner.score and .align on phase 7's mix
+    (phase 20's with the affine ``costs``) under SEQALIGN_INT16_CELLS=1,
+    which must refuse the buckets int16_cells_ok does not admit with the
+    JAX ValueError, then under auto: each bucket takes K3-cell16 exactly
+    when the gate admits its padded shape (a spy on the wrappers, and the
+    launch counters), and every score and alignment equals the oracle's,
+    as the int32 run's of phase 7 (20) do.  Returns the launches."""
+    expected = oracle()
+    message = ("SEQALIGN_INT16_CELLS=1 but the padded shapes/scores exceed "
+               "the int16 value cap (int16_cells_ok is False)")
+    reset_batch_launches()
+    for (k, mode), (texts, patterns) in cases.items():
+        gap, ext = costs or (5 if k == 4 else 10, None)
+        sm = score_matrix(k)
+        what = f"int16 batch {mode:6s} k={k:2d} {gap}/{ext}"
+        aligner = BatchAligner(sm, k, gap, gap_extend=ext, device=device,
+                               **MODES[mode])
+        # The gate on each bucket's padded shape: score's (the swapped
+        # pair's padded_width - 1 x padded_rows) and align's (both
+        # lengths to 128).
+        admits = {"batch_score": {}, "batch_fill_dirs": {}}
+        for t, p in zip(texts, patterns):
+            if not (len(t) and len(p)):
+                continue
+            st, sp = (p, t) if len(t) < len(p) else (t, p)
+            for fn, shape in (("batch_score",
+                               (layout.padded_width(len(st)) - 1,
+                                layout.padded_rows(len(sp)))),
+                              ("batch_fill_dirs",
+                               (align_pad(len(t)), align_pad(len(p))))):
+                admits[fn][shape] = batch_fill.int16_cells_ok(
+                    *shape, sm, k, gap, ext)
+        with environment(SEQALIGN_INT16_CELLS="1"):
+            for fn, gate in ((aligner.score, admits["batch_score"]),
+                             (aligner.align, admits["batch_fill_dirs"])):
+                try:
+                    fn(texts, patterns)
+                    refused = None
+                except ValueError as e:
+                    refused = str(e)
+                check(refused == (None if all(gate.values()) else message),
+                      f"{what}: {fn.__name__} under 1 gave {refused!r}")
+        before = batch_launches()
+        routes, restore = int16_routes()
+        try:
+            with plain_versions_forbidden(), environment(
+                    SEQALIGN_INT16_CELLS="auto"):
+                t0 = time.time()
+                scores = aligner.score(texts, patterns)
+                t1 = time.time()
+                results = aligner.align(texts, patterns)
+                t2 = time.time()
+        finally:
+            restore()
+        delta = {kid: v - before[kid] for kid, v in batch_launches().items()}
+        check(all(c == admits[f][n, m] for f, n, m, c in routes),
+              f"{what}: routes {routes} differ from the gate")
+        took = {(f, c): sum(1 for r in routes if r[0] == f and r[3] == c)
+                for f in ("batch_score", "batch_fill_dirs")
+                for c in (False, True)}
+        check(delta == {"K3-score": took["batch_score", False],
+                        "K3-cell16-score": took["batch_score", True],
+                        "K3-dirs": took["batch_fill_dirs", False],
+                        "K3-cell16-dirs": took["batch_fill_dirs", True],
+                        "K4": took["batch_fill_dirs", False]
+                        + took["batch_fill_dirs", True]},
+              f"{what}: launches {delta}, routes {took}")
+        want_scores, want_aligned = expected[k, mode]
+        check(list(scores) == want_scores, f"{what}: scores differ")
+        bad = [i for i, (r, w) in enumerate(zip(results, want_aligned))
+               if not same_alignment(r, w)]
+        check(not bad, f"{what}: pairs {bad[:10]} differ from the oracle")
+        shapes = {f: f"{sum(g.values())} of {len(g)}"
+                  for f, g in admits.items()}
+        log(f"{what}: the gate admits {shapes['batch_score']} score and "
+            f"{shapes['batch_fill_dirs']} align bucket shapes (under 1 the "
+            f"rest refused); under auto score {t1 - t0:.2f} s, align "
+            f"{t2 - t1:.2f} s, launches {delta}; scores and alignments == "
+            f"the oracle's")
+    return batch_launches()
+
+
+def phase_dpx16():
+    """Phase 25: P2, every variant of probes/dpx16.py: the apply kernel
+    on 2^24 random words and the rate kernel against their plain
+    versions, and the rate kernel timed.  Returns its kernels-line row."""
+    dpx16.apply.launches = 0
+    dpx16.rate_launch.launches = 0
+    results = dpx16.run()
+    launches = dpx16.apply.launches + dpx16.rate_launch.launches
+    for line in dpx16.report(results):
+        log(line)
+    # The rate kernels' loop instructions: a one-instruction op shows
+    # about 1.09 an op (the loop's counter, compare and branch besides).
+    for line in dpx16.sass_report(dpx16.sass_counts()):
+        log(line)
+    by_name = {r["name"]: r for r in results}
+    dpx_ops = 2 * by_name["viaddmax_s32"]["gops"] * 1e9
+    log(f"P2: __viaddmax_s32 (two operations an instruction) runs "
+        f"{dpx_ops / 1e12:.2f} T int32 operations a second, "
+        f"{100 * dpx_ops / INT32_OPS_PER_S:.1f} % of the bounds' "
+        f"{INT32_OPS_PER_S / 1e12:.2f} T")
+    fails = [r["name"] for r in results if not r["exact"]]
+    # The apply kernels' work: three words read and one written a word.
+    nbytes = sum(4 * 4 * r["words"] for r in results)
+    row = bound(nbytes, 0) | {
+        "ms": sum(r["apply_ms"] for r in results),
+        "plain_ms": sum(r["plain_ms"] for r in results),
+        "err": len(fails), "launches": launches,
+        "shape": f"{len(results)} variants x {results[0]['words']} words "
+                 f"(apply kernels, summed)"}
+    log(json.dumps({"dpx16": [{key: r[key] for key in (
+        "name", "exact", "bad", "gops", "rate_ms", "apply_ms", "plain_ms")}
+        for r in results]}))
+    return row, fails
+
+
+def phase_chase():
+    """Phase 26: P1, the dependent chain over each table of
+    probes/walk_costs.py against its plain version, timed.  Returns its
+    kernels-line row (the 32 KiB shared-memory table, the K2 design
+    question) and the results."""
+    walk_costs.chase.launches = 0
+    results = walk_costs.run()
+    for r in results:
+        log(f"P1 chase, {r['name']}: {r['ns_per_step']:.1f} ns a step "
+            f"({r['ms']:.3f} ms for {r['steps']} steps, CUDA events, best "
+            f"of 3), acc {r['acc']} {'==' if r['exact'] else '!='} the "
+            f"plain version's {r['want']} ({r['plain_ms']:.0f} ms)")
+        check(r["exact"], f"P1 {r['name']}: acc differs from the plain "
+                          f"version's")
+    first = results[0]
+    # The table read once, acc written; six integer operations a step
+    # (the load's address, the add, the two masks and shift, the count).
+    row = bound(first["bytes"] + 4, 6 * first["steps"]) | {
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "err": 0,
+        "launches": walk_costs.chase.launches,
+        "shape": f"{first['steps']} steps over a {first['name']} table"}
+    log(json.dumps({"chase": [{key: r[key] for key in (
+        "name", "bytes", "steps", "ms", "ns_per_step", "plain_ms")}
+        for r in results]}))
+    return row
 
 
 def strip_bytes(steps, rps, slots, k, num_ckpts=0, left=False,
@@ -2574,11 +2946,12 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
     return result
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, packed=False):
     """The least time of the work on an H100: bytes over the memory rate
-    or int32 operations over the int32 rate, whichever is larger."""
+    or int32 operations over the int32 rate (``packed``: int16 lanes, two
+    lanes an instruction, so twice that rate), whichever is larger."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    ops_ms = ops / (INT32_OPS_PER_S * (2 if packed else 1)) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -2761,6 +3134,32 @@ def run(procs):
                             costs=BATCH_AFFINE, linear=aw)
     log(f"phase 22 (affine, full width, alignments): "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    c16_errs = phase_cell16_kernels()
+    log(f"phase 23 (K3-cell16 against its plain version and the int32 K3): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    c16_counts = phase_cell16_main_path(cases, batch_expected)
+    c16_aff_counts = phase_cell16_main_path(cases, affine_expected,
+                                            costs=BATCH_AFFINE)
+    c16_sw = phase_score_width(score_data, oracle_scores, int32=sw)
+    c16_aw = phase_align_width(align_data, oracle_aligned, int32=aw)
+    c16_asw = phase_score_width(score_data, oracle_scores_affine,
+                                costs=BATCH_AFFINE, int32=asw)
+    c16_aaw = phase_align_width(align_data, oracle_aligned_affine,
+                                costs=BATCH_AFFINE, int32=aaw)
+    log(f"phase 24 (the int16 batch path): {time.time() - t0:.1f} s, "
+        f"launches {json.dumps(c16_counts)}, affine "
+        f"{json.dumps(c16_aff_counts)}")
+    t0 = time.time()
+    p2_row, p2_fails = phase_dpx16()
+    log(f"phase 25 (P2, packed int16 operations): {time.time() - t0:.1f} s"
+        + (f"; not exact: {', '.join(p2_fails)}" if p2_fails else ""))
+    check(not p2_fails, f"P2: {p2_fails} differ from their plain versions")
+    t0 = time.time()
+    p1_row = phase_chase()
+    log(f"phase 26 (P1, the dependent chain of loads): "
+        f"{time.time() - t0:.1f} s")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
     # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint
@@ -2872,6 +3271,60 @@ def run(procs):
         "library_ms": None, "shape": row["shape"],
         "plain_shape": row["plain_shape"],
     })
+    # K3-cell16 (phase 24): the mixes and the full-width workloads under
+    # SEQALIGN_INT16_CELLS; the probes (phases 25-26): their own runs.
+    for name, kid, counter, width, main in (
+        ("K3-cell16-score batch_score (int16 cells)", "K3-cell16-score",
+         "K3-cell16-score", c16_sw, c16_counts),
+        ("K3-cell16-dirs batch_fill_dirs (int16 cells)", "K3-cell16-dirs",
+         "K3-cell16-dirs", c16_aw, c16_counts),
+        ("K3-cell16-affine-score batch_score (affine, int16 cells)",
+         "K3-cell16-affine-score", "K3-cell16-score", c16_asw,
+         c16_aff_counts),
+        ("K3-cell16-affine-dirs batch_fill_dirs (affine, int16 cells, run "
+         "bits)", "K3-cell16-affine-dirs", "K3-cell16-dirs", c16_aaw,
+         c16_aff_counts),
+    ):
+        row = width[kid]
+        err = max(row["err"], c16_errs[kid])
+        launched = main[counter] + width["counts"][counter]
+        check(launched >= 1, f"{kid}: no launch on the main path")
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": "seqalign_torch/csrc/interpair16.cu",
+            "replaces": "seqalign_tpu/ops/pallas_fill.py:222",
+            "launches": launched, "max_abs_err": err, "exact": err == 0,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "shape": row.get("shape", width.get("shape")),
+        })
+    for name, source, replaces, row in (
+        ("P2 dpx16 (packed int16 operations: apply and rate kernels)",
+         "seqalign_torch/csrc/probe_dpx16.cu",
+         "scripts/mosaic_micro_probe.py:35", p2_row),
+        ("P1 chase (dependent chain of loads)",
+         "seqalign_torch/csrc/probe_chase.cu",
+         "scripts/probe_walk_costs.py:59", p1_row),
+    ):
+        check(row["launches"] >= 1, f"{name}: no launch")
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": row["launches"],
+            "max_abs_err": row["err"], "exact": row["err"] == 0,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"],
+        })
+    log(json.dumps({"batch_int16": {
+        "score_wall_ms": c16_sw["wall_ms"],
+        "score_gcups_kernel": c16_sw["gcups_kernel"],
+        "align_wall_ms": c16_aw["wall_ms"],
+        "align_pairs_per_s": c16_aw["pairs_per_s"],
+        "affine_score_wall_ms": c16_asw["wall_ms"],
+        "affine_score_gcups_kernel": c16_asw["gcups_kernel"],
+        "affine_align_wall_ms": c16_aaw["wall_ms"],
+        "affine_align_pairs_per_s": c16_aaw["pairs_per_s"]}}))
     log(json.dumps({"strip": {
         "host": {key: v for key, v in sf["host"].items() if key != "counts"},
         "device": {key: v for key, v in sf["device"].items()

@@ -43,6 +43,18 @@ def pair_engine() -> str:
     return "wavefront"
 
 
+def int16_cells() -> str:
+    """int16 cell mode of the batch fills (``csrc/interpair16.cu``, two DP
+    cells a 32-bit register): ``"auto"`` routes each bucket that
+    ``int16_cells_ok`` admits over its padded shape to the int16 kernel,
+    ``"0"`` never, ``"1"`` every bucket, and refuses (ValueError) one that
+    is not admitted.  ``SEQALIGN_INT16_CELLS`` in 0 / 1 / auto overrides,
+    as in the JAX package; otherwise ``"0"`` (the JAX default reads a TPU
+    validation marker, which says nothing of the card)."""
+    forced = os.environ.get("SEQALIGN_INT16_CELLS", "").lower()
+    return forced if forced in ("0", "1", "auto") else "0"
+
+
 def available_host_bytes() -> int | None:
     """Measured available host RAM (None if unknown) — caps the budget
     of direction words brought to the host (the reference's analog is

@@ -23,7 +23,8 @@ from concurrent.futures import ThreadPoolExecutor
 from ..native.build import build_shared
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNELS = ("wavefront", "walk", "interpair", "batch_walk", "strip")
+KERNELS = ("wavefront", "walk", "interpair", "interpair16", "batch_walk",
+           "strip", "probe_dpx16", "probe_chase")
 HEADERS = (os.path.join(CSRC, "launch_error.cuh"),)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 

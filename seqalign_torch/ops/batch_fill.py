@@ -22,16 +22,25 @@ int32 score matrix.  Linear gaps, or affine (Gotoh) ones with
 extend cost, as the JAX ``BatchAligner`` requires): global, local and
 semi-global.
 
+``cell16=True`` runs the same DP in int16 cells (the JAX kernel's
+``cell16`` mode): ``NEG_16`` sentinels in place of ``NEG_HALF`` and
+``NEG_INF``, int32 words, best cells and scores.  Callers gate it on
+``int16_cells_ok`` over the padded widths, as the JAX callers do.
+Inside the gate no value wraps, so every output equals the int32 mode's
+except the scores of padding pairs (ns = 0): ``NEG_16`` where int32
+gives ``NEG_INF`` (global and semi).
+
 For tensors on a CUDA device the wrappers launch the kernel
-(``csrc/interpair.cu``), after moving the letters to [column][pair]
-order with plain tensor ops; for tensors on the CPU they run the plain
-versions.
+(``csrc/interpair.cu``; ``csrc/interpair16.cu`` with ``cell16``), after
+moving the letters to [column][pair] order with plain tensor ops; for
+tensors on the CPU they run the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._build import check_launch, library
@@ -40,6 +49,24 @@ NEG_INF = -(1 << 30)
 NEG_HALF = NEG_INF // 2  # E and F before any gap run (affine)
 DIR_ROWS_PER_WORD = 16
 TILE_QUANTUM = 128  # tile_pairs is a multiple of this (the JAX layout)
+# int16 cell mode (the JAX package's values): sentinels at -2^14; every
+# DP value must stay clear of them and of int16 wraparound, which
+# int16_cells_ok bounds over the padded shapes.
+NEG_16 = -(1 << 14)
+INT16_VALUE_CAP = 15_800  # NEG_16 head/tailroom: bound + open + sub < 16384
+
+
+def int16_cells_ok(n_pad: int, m_pad: int, score_matrix, k_alpha: int,
+                   gap, gap_extend=None) -> bool:
+    """True when every DP value of every mode fits the int16 cells: the
+    JAX ``int16_cells_ok``, |v| <= max|sub| * min(n, m) + max(open,
+    extend) * (n + m) <= INT16_VALUE_CAP over the padded widths."""
+    sm = np.asarray(score_matrix)[:k_alpha, :k_alpha]
+    max_sub = int(np.abs(sm).max(initial=0))
+    g = abs(int(gap))
+    ge = abs(int(gap_extend)) if gap_extend is not None else g
+    bound = max_sub * min(n_pad, m_pad) + max(g, ge) * (n_pad + m_pad)
+    return bound <= INT16_VALUE_CAP
 
 
 def mode_code(local: bool, semi: bool) -> int:
@@ -89,29 +116,54 @@ def _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend,
         raise ValueError(f"the batch fill runs on cuda or cpu, not {device}")
 
 
+def _pair_columns(x, b2):
+    """(B, W) letters as [column][pair] int8, (W, b2): a warp reads
+    neighbouring bytes.  Pairs past B (one, to make the batch even for
+    the two-pairs-a-thread int16 kernel) get zero letters."""
+    out = x.to(torch.int8).t()
+    if b2 == x.shape[0]:
+        return out.contiguous()
+    padded = torch.zeros((x.shape[1], b2), dtype=torch.int8,
+                         device=x.device)
+    padded[:, :x.shape[0]] = out
+    return padded
+
+
+def _pad_lengths(x, b2):
+    if b2 == x.shape[0]:
+        return x.contiguous()
+    return torch.cat([x, x.new_zeros(b2 - x.shape[0])])
+
+
 def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
-                  local, semi, tile_pairs, with_dirs, gap_extend=None):
+                  local, semi, *, tile_pairs, with_dirs, gap_extend=None,
+                  cell16=False):
     """K3 on the inputs' CUDA device, ready to launch: the letters moved to
     [column][pair] int8 order and the outputs allocated.  Returns
     (launch, (scores, best_is, best_js, dirs)), with dirs2 fifth for
     affine gaps; each ``launch()`` runs the kernel once on the current
     stream, raising if the launch failed, and counts nothing (the
-    wrappers count their launches)."""
+    wrappers count their launches).  ``cell16``: the int16 kernel, two
+    pairs a thread; an odd score-only batch gains one padding pair on
+    the device, and its score is not returned."""
     device = texts.device
     b, n_cols = texts.shape
     m_rows = patterns.shape[1]
-    # [column][pair] int8 letters: a warp reads 32 neighbouring bytes.
-    texts_cp = texts.to(torch.int8).t().contiguous()
-    patterns_cp = patterns.to(torch.int8).t().contiguous()
-    ns = ns.contiguous()
-    ms = ms.contiguous()
+    b2 = b + (b & 1) if cell16 else b
+    texts_cp = _pair_columns(texts, b2)
+    patterns_cp = _pair_columns(patterns, b2)
+    ns = _pad_lengths(ns, b2)
+    ms = _pad_lengths(ms, b2)
     sm = score_matrix.contiguous()
     i32 = torch.int32
     affine = gap_extend is not None
-    row = torch.empty((n_cols, b), dtype=i32, device=device)
-    frow = torch.empty((n_cols, b), dtype=i32, device=device) \
+    # The stripes' bottom rows (and F): one int32 a pair, or one packed
+    # pair of int16 cells a thread.
+    row_shape = (n_cols, b2 // 2 if cell16 else b2)
+    row = torch.empty(row_shape, dtype=i32, device=device)
+    frow = torch.empty(row_shape, dtype=i32, device=device) \
         if affine else None
-    scores = torch.empty(b, dtype=i32, device=device)
+    scores = torch.empty(b2, dtype=i32, device=device)
     best_is = best_js = dirs = dirs2 = None
     if with_dirs:
         best_is = torch.empty(b, dtype=i32, device=device)
@@ -125,25 +177,29 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    name = "interpair16" if cell16 else "interpair"
+
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel()(
+            rc = _kernel(name)(
                 texts_cp.data_ptr(), patterns_cp.data_ptr(), ns.data_ptr(),
                 ms.data_ptr(), sm.data_ptr(), k_alpha, int(gap),
-                int(gap_extend) if affine else 0, int(affine), b, n_cols,
+                int(gap_extend) if affine else 0, int(affine), b2, n_cols,
                 m_rows, tile_pairs or TILE_QUANTUM, mode_code(local, semi),
                 int(with_dirs), row.data_ptr(), ptr(frow), scores.data_ptr(),
                 ptr(best_is), ptr(best_js), ptr(dirs), ptr(dirs2), stream,
             )
-        check_launch("interpair", rc)
+        check_launch(name, rc)
 
-    out = (scores, best_is, best_js, dirs)
+    out = (scores[:b], best_is, best_js, dirs)
     return launch, (out + (dirs2,) if affine else out)
 
 
-def _kernel():
-    fn = library("interpair").sa_interpair_fill
+def _kernel(name):
+    """The C entry point of kernel library ``name`` (``interpair`` or
+    ``interpair16``: one signature)."""
+    fn = getattr(library(name), f"sa_{name}_fill")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p] * 5 + [i, i, i, i, ctypes.c_int64, i, i, i, i, i]
@@ -153,35 +209,46 @@ def _kernel():
 
 
 def batch_score(texts, patterns, ns, ms, score_matrix, gap, k_alpha: int,
-                local: bool = False, semi: bool = False, gap_extend=None):
-    """Optimal scores of a padded batch (the JAX ``batch_score_pallas``,
-    int32 cells; affine with ``gap_extend``).  Returns (B,) int32 on the
+                local: bool = False, semi: bool = False, gap_extend=None,
+                cell16: bool = False):
+    """Optimal scores of a padded batch (the JAX ``batch_score_pallas``;
+    affine with ``gap_extend``; int16 cells with ``cell16``, which the
+    caller gates on ``int16_cells_ok``).  Returns (B,) int32 on the
     inputs' device: local scores floored at 0; padding pairs (ns = 0)
-    score 0 (local) or NEG_INF."""
+    score 0 (local) or NEG_INF (NEG_16 with ``cell16``).  A launch of the
+    int16 kernel counts in ``batch_score.cell16_launches``, one of the
+    int32 kernel in ``batch_score.launches``."""
     _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend, k_alpha,
            local, semi)
     if texts.device.type == "cpu":
         return batch_score_plain(texts, patterns, ns, ms, score_matrix, gap,
                                  k_alpha, local=local, semi=semi,
-                                 gap_extend=gap_extend)
+                                 gap_extend=gap_extend, cell16=cell16)
     launch, out = kernel_launch(
         texts, patterns, ns, ms, score_matrix, gap, k_alpha, local, semi,
-        None, False, gap_extend)
+        tile_pairs=None, with_dirs=False, gap_extend=gap_extend,
+        cell16=cell16)
     scores = out[0]
     launch()
-    batch_score.launches += 1
+    if cell16:
+        batch_score.cell16_launches += 1
+    else:
+        batch_score.launches += 1
     return scores
 
 
 batch_score.launches = 0
+batch_score.cell16_launches = 0
 
 
 def batch_fill_dirs(texts, patterns, ns, ms, score_matrix, gap,
                     k_alpha: int, local: bool = False, semi: bool = False,
-                    tile_pairs: int = TILE_QUANTUM, gap_extend=None):
-    """Fill with direction words (the JAX ``batch_fill_dirs_pallas``,
-    int32 cells; affine with ``gap_extend``).  M must be a multiple of 16
-    and B of tile_pairs.
+                    tile_pairs: int = TILE_QUANTUM, gap_extend=None,
+                    cell16: bool = False):
+    """Fill with direction words (the JAX ``batch_fill_dirs_pallas``;
+    affine with ``gap_extend``; int16 cells with ``cell16``, gated by the
+    caller on ``int16_cells_ok``).  M must be a multiple of 16 and B of
+    tile_pairs.
 
     Returns (scores, best_is, best_js, dirs), and dirs2 fifth for affine
     gaps, on the inputs' device: scores (B,) as ``batch_score``;
@@ -189,7 +256,7 @@ def batch_fill_dirs(texts, patterns, ns, ms, score_matrix, gap,
     row-major order (0 for global, whose walk starts at (m, n)); dirs
     (B/tile_pairs, M/16, N, tile_pairs/128, 128) int32 words and dirs2
     the run bits in the same layout, every word defined, padding
-    included.
+    included.  Launches count as in ``batch_score``.
     """
     _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend, k_alpha,
            local, semi, tile_pairs)
@@ -197,20 +264,25 @@ def batch_fill_dirs(texts, patterns, ns, ms, score_matrix, gap,
         return batch_fill_dirs_plain(texts, patterns, ns, ms, score_matrix,
                                      gap, k_alpha, local=local, semi=semi,
                                      tile_pairs=tile_pairs,
-                                     gap_extend=gap_extend)
+                                     gap_extend=gap_extend, cell16=cell16)
     launch, out = kernel_launch(texts, patterns, ns, ms, score_matrix, gap,
-                                k_alpha, local, semi, tile_pairs, True,
-                                gap_extend)
+                                k_alpha, local, semi, tile_pairs=tile_pairs,
+                                with_dirs=True, gap_extend=gap_extend,
+                                cell16=cell16)
     launch()
-    batch_fill_dirs.launches += 1
+    if cell16:
+        batch_fill_dirs.cell16_launches += 1
+    else:
+        batch_fill_dirs.launches += 1
     return out
 
 
 batch_fill_dirs.launches = 0
+batch_fill_dirs.cell16_launches = 0
 
 
 def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
-                semi, tile_pairs, gap_extend=None):
+                semi, tile_pairs, gap_extend=None, cell16=False):
     """Row-by-row fill of every pair at once, on the inputs' device.
 
     A linear-gap row resolves its left dependency with one running
@@ -221,8 +293,19 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
     (floored for local) and T[0] = H[i, 0], E[j] + ge*j is the running
     maximum of T[k] - g + ge*(k+1) over k < j, and of NEG_HALF.  The
     terms E[k] leaves out are no larger, since gap >= ge: extending E[k]
-    beats closing it and reopening.  Returns (scores, best_is, best_js,
-    dirs or None, dirs2 or None)."""
+    beats closing it and reopening.
+
+    ``cell16``: the cells are torch.int16, E, F and the trackers start at
+    NEG_16, and the words, best cells and scores widen to int32, as in
+    the JAX kernel's int16 mode.  The running maxima stay exact in int16
+    inside ``int16_cells_ok``'s bound B <= INT16_VALUE_CAP over the padded
+    widths: every cell, E, F, T and diagonal is a path score with |v| <= B
+    (E and F at least one real path's, the sentinel never below NEG_16 -
+    extend * N), and gap * N, extend * N <= B, so T + gap * k,
+    T - gap + extend * (k + 1) and NEG_16 - extend * j all lie in
+    [-(2^14 + B), 2B] = [-32,184, 31,600], inside int16's range.
+
+    Returns (scores, best_is, best_js, dirs or None, dirs2 or None)."""
     device = texts.device
     i32 = torch.int32
     b, n_cols = texts.shape
@@ -230,6 +313,9 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
     gap = int(gap)
     affine = gap_extend is not None
     ge = int(gap_extend) if affine else 0
+    # The cells' type, the gap runs' sentinel and the trackers' start.
+    cdt, neg_run, neg_acc = ((torch.int16, NEG_16, NEG_16) if cell16
+                             else (i32, NEG_HALF, NEG_INF))
     text = texts.long()
     pat = patterns.long()
     sm = score_matrix.reshape(-1)
@@ -237,16 +323,16 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
     m = ms.long().clamp(max=m_rows)
     col = torch.arange(n_cols, device=device)[None, :]  # j: DP column j+1
     ramp = ((ge if affine else gap)
-            * torch.arange(n_cols + 1, device=device)).to(i32)
+            * torch.arange(n_cols + 1, device=device)).to(cdt)
     in_text = col < n
     if local or semi:
-        prev = torch.zeros((b, n_cols), dtype=i32, device=device)
+        prev = torch.zeros((b, n_cols), dtype=cdt, device=device)
     elif affine:
-        prev = (-gap - ge * col).to(i32).expand(b, n_cols)
+        prev = (-gap - ge * col).to(cdt).expand(b, n_cols)
     else:
-        prev = (-gap * (col + 1)).to(i32).expand(b, n_cols)
-    f_prev = torch.full((b, n_cols), NEG_HALF, dtype=i32, device=device)
-    acc = torch.full((b,), NEG_INF, dtype=i32, device=device)
+        prev = (-gap * (col + 1)).to(cdt).expand(b, n_cols)
+    f_prev = torch.full((b, n_cols), neg_run, dtype=cdt, device=device)
+    acc = torch.full((b,), neg_acc, dtype=cdt, device=device)
     bi = torch.zeros(b, dtype=i32, device=device)
     bj = torch.zeros(b, dtype=i32, device=device)
     with_dirs = tile_pairs is not None
@@ -263,9 +349,9 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
         return -gap * i
 
     for i in range(1, m_rows + 1):
-        h0 = torch.full((b, 1), column0(i), dtype=i32, device=device)
-        d0 = torch.full((b, 1), column0(i - 1), dtype=i32, device=device)
-        sub = sm[pat[:, i - 1:i] * k_alpha + text]
+        h0 = torch.full((b, 1), column0(i), dtype=cdt, device=device)
+        d0 = torch.full((b, 1), column0(i - 1), dtype=cdt, device=device)
+        sub = sm[pat[:, i - 1:i] * k_alpha + text].to(cdt)
         diag = torch.cat([d0, prev[:, :-1]], dim=1) + sub
         if affine:
             f_ext = f_prev - ge
@@ -277,7 +363,7 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
             # E[j] + ge*j for j = 1..N: the running maximum over the
             # columns k < j of T[k] - gap + ge*(k+1), T[0] = H[i, 0].
             opened = torch.cat([h0, t[:, :-1]], dim=1) - gap + ramp[1:]
-            e = (torch.cummax(opened, dim=1).values.clamp_min(NEG_HALF)
+            e = (torch.cummax(opened, dim=1).values.clamp_min(neg_run)
                  - ramp[1:])
             cur = torch.maximum(t, e)
             gap_best = torch.maximum(e, f)
@@ -302,7 +388,7 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
             word = d if r == 0 else word | (d << (2 * r))
             if affine:
                 e_before = torch.cat(
-                    [torch.full((b, 1), NEG_HALF, dtype=i32, device=device),
+                    [torch.full((b, 1), neg_run, dtype=cdt, device=device),
                      e[:, :-1]], dim=1)
                 runs = ((e_before - ge > left - gap).to(i32)
                         | ((f_ext > f_open).to(i32) << 1))
@@ -313,7 +399,7 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
                     words[1, (i - 1) // DIR_ROWS_PER_WORD] = word2.t()
         if local or semi:
             row_ok = (i <= m) if local else (m == i)
-            cand = torch.where(in_text & row_ok[:, None], cur, NEG_INF)
+            cand = torch.where(in_text & row_ok[:, None], cur, neg_acc)
             best, arg = cand.max(dim=1)  # the first best column of the row
             better = best > acc
             acc = torch.where(better, best, acc)
@@ -326,7 +412,7 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
         prev = cur
         if affine:
             f_prev = f
-    scores = acc.clamp_min(0) if local else acc
+    scores = (acc.clamp_min(0) if local else acc).to(i32)
     if not with_dirs:
         return scores, bi, bj, None, None
     tiles = b // tile_pairs
@@ -341,19 +427,20 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
 
 def batch_score_plain(texts, patterns, ns, ms, score_matrix, gap,
                       k_alpha: int, local: bool = False, semi: bool = False,
-                      gap_extend=None):
+                      gap_extend=None, cell16: bool = False):
     """Plain PyTorch version of ``batch_score``, on the inputs' device,
     with identical outputs."""
     return _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
-                       local, semi, None, gap_extend)[0]
+                       local, semi, None, gap_extend, cell16)[0]
 
 
 def batch_fill_dirs_plain(texts, patterns, ns, ms, score_matrix, gap,
                           k_alpha: int, local: bool = False,
                           semi: bool = False,
-                          tile_pairs: int = TILE_QUANTUM, gap_extend=None):
+                          tile_pairs: int = TILE_QUANTUM, gap_extend=None,
+                          cell16: bool = False):
     """Plain PyTorch version of ``batch_fill_dirs``, on the inputs'
     device, with identical outputs."""
     out = _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
-                      local, semi, tile_pairs, gap_extend)
+                      local, semi, tile_pairs, gap_extend, cell16)
     return out if gap_extend is not None else out[:4]

@@ -8,7 +8,9 @@ device, so only scores, best cells and 2-bit packed moves come back.
 The host replays the moves through the native ``sa_emit_moves_batch``,
 byte-identical to the oracle.  Pairs with an empty sequence go to the
 native oracle.  Linear or affine (Gotoh) gaps: global, local and
-semi-global.
+semi-global.  Under ``SEQALIGN_INT16_CELLS`` (``config.int16_cells``) a
+bucket whose padded shape ``int16_cells_ok`` admits is filled in int16
+cells (``csrc/interpair16.cu``), as in the JAX class; no output changes.
 """
 
 from __future__ import annotations
@@ -161,6 +163,24 @@ class BatchAligner:
         rows[np.arange(width) < lengths[:, None]] = letters
         return rows
 
+    def _cell16(self, n_pad: int, m_pad: int) -> bool:
+        """Whether a bucket of padded shape (n_pad, m_pad) takes the int16
+        cells: never under ``SEQALIGN_INT16_CELLS=0``; where
+        ``int16_cells_ok`` admits it under ``auto``; always under ``1``,
+        which refuses a bucket it does not admit, with the JAX class's
+        ValueError."""
+        mode = config.int16_cells()
+        if mode == "0":
+            return False
+        ok = batch_fill.int16_cells_ok(n_pad, m_pad, self.score_matrix,
+                                       self.alphabet_size, self.gap_penalty,
+                                       self.gap_extend)
+        if mode == "1" and not ok:
+            raise ValueError(
+                "SEQALIGN_INT16_CELLS=1 but the padded shapes/scores "
+                "exceed the int16 value cap (int16_cells_ok is False)")
+        return ok
+
     def _upload(self, *arrays):
         return [torch.from_numpy(a).to(self.device) for a in arrays]
 
@@ -182,12 +202,13 @@ class BatchAligner:
         for bucket in self._buckets(
                 texts, patterns, lambda n: layout.padded_width(n) - 1,
                 layout.padded_rows):
+            cell16 = self._cell16(bucket.n_pad, bucket.m_pad)
             arrays = self._pack(bucket.indices, bucket.n_pad, bucket.m_pad,
                                 len(bucket.indices), texts, patterns)
             scores = batch_fill.batch_score(
                 *self._upload(*arrays), self._sm(), self.gap_penalty,
                 self.alphabet_size, local=self.local, semi=self.semi,
-                gap_extend=self.gap_extend)
+                gap_extend=self.gap_extend, cell16=cell16)
             out[bucket.indices] = scores.cpu().numpy()
         return out
 
@@ -255,6 +276,7 @@ class BatchAligner:
                          patterns):
         """Queue one chunk's upload, fill (K3), walk (K4) and the copy of
         its outputs to the host; returns what collecting it needs."""
+        cell16 = self._cell16(n_pad, m_pad)
         b_pad = -(-len(idx) // tile_pairs) * tile_pairs
         t_arr, p_arr, ns, ms = self._pack(idx, n_pad, m_pad, b_pad, texts,
                                           patterns)
@@ -262,7 +284,7 @@ class BatchAligner:
         out = batch_fill.batch_fill_dirs(
             t_dev, p_dev, ns_dev, ms_dev, self._sm(), self.gap_penalty,
             self.alphabet_size, local=self.local, semi=self.semi,
-            tile_pairs=tile_pairs, gap_extend=self.gap_extend)
+            tile_pairs=tile_pairs, gap_extend=self.gap_extend, cell16=cell16)
         scores, bis, bjs, dirs = out[:4]
         dirs2 = out[4] if self.gap_extend is not None else None
         if self.local:

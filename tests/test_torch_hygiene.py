@@ -22,6 +22,7 @@ for name in modules:
 import chip_smoke  # runs nothing: its work is under the __main__ check
 from seqalign_torch.ops import (batch_fill, batch_traceback, strip_fill,
                                 walk, wavefront)
+from seqalign_torch.probes import dpx16, walk_costs
 foreign = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu")
@@ -33,8 +34,12 @@ print(json.dumps({
                  walk.walk_skewed_window.launches,
                  batch_fill.batch_score.launches,
                  batch_fill.batch_fill_dirs.launches,
+                 batch_fill.batch_score.cell16_launches,
+                 batch_fill.batch_fill_dirs.cell16_launches,
                  batch_traceback.batch_walk.launches,
-                 strip_fill.strip_fill.launches],
+                 strip_fill.strip_fill.launches,
+                 dpx16.apply.launches, dpx16.rate_launch.launches,
+                 walk_costs.chase.launches],
 }))
 """
 
@@ -59,10 +64,12 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.ops.batch_fill",
                  "seqalign_torch.ops.batch_traceback",
                  "seqalign_torch.parallel", "seqalign_torch.parallel.batch",
-                 "seqalign_torch.ops.strip_fill", "seqalign_torch.ops.tiled"):
+                 "seqalign_torch.ops.strip_fill", "seqalign_torch.ops.tiled",
+                 "seqalign_torch.probes", "seqalign_torch.probes.dpx16",
+                 "seqalign_torch.probes.walk_costs"):
         assert name in got["modules"]
     assert got["foreign"] == []
-    assert got["launches"] == [0, 0, 0, 0, 0, 0]
+    assert got["launches"] == [0] * 11
 
 
 def test_port_sources_name_no_jax():
