@@ -13,11 +13,16 @@ without its last line:
    ``csrc/batch_walk.cu``, K5 ``csrc/strip.cu``, the probes P2
    ``csrc/probe_dpx16.cu`` and P1 ``csrc/probe_chase.cu``) and the native
    oracle from the sources, all at once, and print the build time and
-   ptxas's lines.
+   ptxas's lines; fail if any K1 instance spills.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
-   is exact (tolerance 0).
+   is exact (tolerance 0).  K1's bands hand their rows on through
+   streams in a scratch buffer: at rps 8 x 4096 one launch closure runs
+   5 times on the same inputs, its outputs and its streams' values
+   poisoned between runs, each run equal to the plain version, and its
+   128 CTAs must run on more than 100 SMs (``repeat_launches``; phases 10
+   and 13 do the same for the other five variants).
 3. K2 against its plain version on the words of phase 2, also with a
    move buffer shorter than the path.  Exact.
 4. The single-pair main path: the ``-g`` command line (``cli.main``, the
@@ -335,6 +340,8 @@ HELD_FULL_LAST = (7680, 32768, 40960, 262144, False, True)
 HELD_LONG = (16384, 32768, 81920, 98304, False, False)
 
 MODES = {"global": {}, "local": {"local": True}, "semi": {"semi": True}}
+# Runs of one K1 launch closure on the same inputs (repeat_launches).
+REPEATS = 5
 ALGO = {"global": 0, "local": 1, "semi": 2}
 # Affine K1 and K2 against their plain versions (phase 13): rps, slots,
 # ckpt_every, text letters with words, text letters score-only.
@@ -525,10 +532,12 @@ def ptxas_summary(path):
     lines = []
     probes = []  # P2's instances, summarised in one line
     for name, stack, st, ld, regs in pattern.findall(text):
-        args = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", name)
+        args = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                         name)
         if args:
-            label = (f"<rps {args[1]}, slots/thread {args[2]}, "
-                     f"track {args[3]}, dirs {args[4]}, affine {args[5]}>")
+            label = (f"<rps {args[1]}, lanes/slot {args[2]}, steps/iteration "
+                     f"{args[3]}, track {args[4]}, dirs {args[5]}, "
+                     f"affine {args[6]}>")
         elif args := re.search(r"strip_fill_kernelILi(\d+)ELb(\d)ELb(\d)E",
                                name):
             label = (f"<cols/thread {args[1]}, local {args[2]}, "
@@ -559,6 +568,50 @@ def ptxas_summary(path):
                      f"{min(regs)}-{max(regs)} registers, spill stores "
                      f"{max(st for _, st in probes)} B at most")
     return lines
+
+
+def repeat_launches(what, want, text_steps, bottom_in, pattern_slots,
+                    score_matrix, gap, n, m, i0, k_alpha, local=False,
+                    with_dirs=True, rps=wavefront.ROWS_PER_SLOT, ckpt_every=0,
+                    slots=wavefront.SLOTS, semi=False, left_in=None,
+                    affine=False, ext=0, fbot_in=None, left_e=None,
+                    times=REPEATS):
+    """K1's launch closure run ``times`` times on the same inputs (the
+    arguments of ``wavefront_strip``), each run bitwise equal to ``want``
+    (the plain version's outputs), so all equal to each other.  Before
+    each run the outputs but the checkpoints are poisoned, and before
+    each run after the first the values of the bands' streams (not their
+    tags) too: a run that read a stale stream entry or a ticket left from
+    the run before would differ.  Returns the CTAs and the SMs they ran
+    on (the last run)."""
+    launch, out = wavefront.kernel_launch(
+        text_steps, bottom_in, pattern_slots, score_matrix, gap, n, m, i0,
+        k_alpha, local, rps, ckpt_every, slots, semi, left_in, affine=affine,
+        ext=ext, fbot_in=fbot_in, left_e=left_e)
+    streams = launch.scratch[wavefront.SCRATCH_COUNTERS // 2:]
+    poisoned = [x for i, x in enumerate(out)
+                if x is not None and i not in (5, 8)]
+    for r in range(times):
+        for x in poisoned:
+            x.fill_(-12345)
+        if r:
+            streams.bitwise_xor_(0x5A5A5)
+        launch()
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f"{what}: run {r + 1} of {times} of one launch "
+                        f"closure: max_abs_err {err}")
+    sms = len(set(wavefront.launch_sms(launch)))
+    ctas = launch.ctas
+    if slots == 4096:
+        check(ctas > 1 and sms > 100, f"{what}: {ctas} CTAs on {sms} SMs")
+    REPEATED.append((what, ctas, sms))
+    log(f"{what}: {times} runs of one launch closure, each exact; "
+        f"{ctas} CTAs on {sms} SMs")
+
+
+# K1's repeat-launch checks (phases 2, 10, 13): (what, CTAs, SMs).
+REPEATED = []
 
 
 def strip_case(rng, n, m, k, rps, slots, local, semi, device):
@@ -637,6 +690,9 @@ def phase_kernels(device="cuda", n=4000,
                 check(err == 0, f"K1 {mode} k={k} rps={rps} slots={slots}: "
                                 f"max_abs_err {err}")
                 k1_err = max(k1_err, err)
+                if (rps, slots, k, mode) == (8, 4096, 4, "global"):
+                    repeat_launches(f"K1 with words, rps {rps} x {slots}",
+                                    plain, *args, gap, n, m, 0, k, **kw)
                 i0, j0 = walk_start(out, n, m, rps, slots, local, semi)
                 werr, res = compare_walk(out[0], rps, i0, j0, local,
                                          -(-(n + m + 1) // 16) * 16)
@@ -1728,6 +1784,9 @@ def phase_ckpt_kernels(device="cuda"):
                       f"K1 score-only {mode} k={k} rps={rps} slots={slots}:"
                       f" max_abs_err {err}")
                 k1_err = max(k1_err, err)
+                if (rps, slots, k, mode) == (16, 4096, 4, "global"):
+                    repeat_launches(f"K1 score-only, rps {rps} x {slots}",
+                                    plain, *args, gap, n, m, 0, k, **kw)
                 log(f"K1 score-only, checkpoints every {every}, {mode:6s} "
                     f"k={k:2d} rps={rps:2d} slots={slots}: exact "
                     f"({out[5].shape[0] // rps} columns), kernel "
@@ -1758,6 +1817,9 @@ def phase_ckpt_kernels(device="cuda"):
                 check(err == 0, f"K1 tile {where} {mode} k={k}: max_abs_err "
                                 f"{err}")
                 k1_err = max(k1_err, err)
+                if (k, mode, where) == (4, "global", "interior"):
+                    repeat_launches("K1 tile, left column, rps 4 x 1024",
+                                    plain, *args, **tkw)
                 i0, j0 = tile_walk_start(out, b, c, tiles.rows, cols,
                                          tiles.slots, n, m, mode == "local")
                 werr, res = compare_walk(out[0], 4, i0, j0, mode == "local",
@@ -2097,6 +2159,10 @@ def phase_affine_kernels(device="cuda"):
                 err = max_abs_err(out, want)
                 check(err == 0 and out[6] is not None,
                       f"K1 affine {tag}: max_abs_err {err}")
+                if (rps, k, mode) == (16, 4, "global"):
+                    repeat_launches(f"K1 affine with words, rps {rps} x "
+                                    f"{slots}", want, *args, gap, n_words, m,
+                                    0, k, **kw)
                 del want
                 i0, j0 = walk_start(out[:6], n_words, m, rps, slots, local,
                                     semi)
@@ -2137,6 +2203,10 @@ def phase_affine_kernels(device="cuda"):
                 check(err == 0 and out[0] is None and out[6] is None
                       and out[8] is not None,
                       f"K1 affine score-only {tag}: max_abs_err {err}")
+                if (rps, k, mode) == (16, 4, "global"):
+                    repeat_launches(f"K1 affine score-only, rps {rps} x "
+                                    f"{slots}", want, *args, gap, n_ckpt, m,
+                                    0, k, **kw)
                 del want
                 errs["K1-affine-ckpt"] = max(errs["K1-affine-ckpt"], err)
                 if rps == 16 and "K1-affine-ckpt" not in plain:
@@ -2168,6 +2238,9 @@ def phase_affine_kernels(device="cuda"):
                 err = max_abs_err(out, want)
                 check(err == 0, f"K1 affine tile {where} {mode} k={k}: "
                                 f"max_abs_err {err}")
+                if rps == 16 and where == "interior":
+                    repeat_launches(f"K1 affine tile, left columns, rps {rps}"
+                                    f" x {slots}", want, *args, **tkw)
                 del want
                 errs["K1-affine-tile"] = max(errs["K1-affine-tile"], err)
                 if where == "interior" and "K1-affine-tile" not in plain:
@@ -2999,6 +3072,12 @@ def run(procs):
     for path in kernels.values():
         for line in ptxas_summary(path):
             log(line)
+    # K1 keeps its state in registers: no instance may spill.
+    k1_lines = [line for line in ptxas_summary(kernels["wavefront"])
+                if "wavefront_strip_kernel" in line]
+    spilled = [line for line in k1_lines if "spill stores 0 B" not in line]
+    check(k1_lines and not spilled, f"K1 spills: {spilled or 'no lines'}")
+    log(f"K1: {len(k1_lines)} instances, none spills")
 
     # Host work beside the device phases: the oracle's outputs for
     # phase 4, a fresh-process -g run, and the score-only fill for
@@ -3355,6 +3434,10 @@ def run(procs):
                                  "long_wall_s", "long_phase1_s",
                                  "long_phase2_s", "long_strips", "long_tiles",
                                  "long_peak_bytes")}}))
+    check(len(REPEATED) == 6, f"K1 repeat checks: {REPEATED}")
+    log(json.dumps({"k1_repeats": [
+        {"what": what, "runs": REPEATS, "ctas": ctas, "sms": sms}
+        for what, ctas, sms in REPEATED]}))
     log(f"total: {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

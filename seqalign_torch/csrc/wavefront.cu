@@ -12,20 +12,21 @@
 // j = t-s+1 of all of them.  Slots the wave has not reached (j < 1) keep
 // their left boundary column in their state: S[i, 0] of the arithmetic
 // boundary, or left_in (the checkpoint engine's tile re-fill, whose
-// columns are relative to the tile's first column).  Word (t/16)*rps + r,
-// column s, holds the direction of step t of slot s's row r at bits
-// 2*(t%16): LEFT 0, DIAG 1, TOP 2, STOP 3.  DIAG wins only when strictly
-// greater than the best gap move, LEFT beats TOP on ties, local marks
-// STOP where the best move is <= 0.  Local tracks every row's running
-// maximum and first best column; semi-global runs the global recurrence
-// (the caller passes a zero top row) and tracks row m only; global keeps
-// S[m, n] in the snap of the slot owning row m.  The last slot's last
-// row streams out once per step (the next strip's top row).  A launch
-// with ckpt_every = C > 0 is the score-only variant, which stores no
-// words and keeps column checkpoints instead: ckpts row q*rps + r,
-// column s holds S[i0+rps*s+r+1, (q+1)*C]; entries of columns the slot
-// does not reach within the strip's steps keep what the caller put
-// there (the wrapper zeroes them).  ckpt_every = 0 stores the words.
+// columns are relative to the tile's first column); they still run the
+// cell and write its direction bits.  Word (t/16)*rps + r, column s,
+// holds the direction of step t of slot s's row r at bits 2*(t%16): LEFT
+// 0, DIAG 1, TOP 2, STOP 3.  DIAG wins only when strictly greater than
+// the best gap move, LEFT beats TOP on ties, local marks STOP where the
+// best move is <= 0.  Local tracks every row's running maximum and first
+// best column; semi-global runs the global recurrence (the caller passes
+// a zero top row) and tracks row m only; global keeps S[m, n] in the snap
+// of the slot owning row m.  The last slot's last row streams out once
+// per step (the next strip's top row).  A launch with ckpt_every = C > 0
+// is the score-only variant, which stores no words and keeps column
+// checkpoints instead: ckpts row q*rps + r, column s holds
+// S[i0+rps*s+r+1, (q+1)*C]; entries of columns the slot does not reach
+// within the strip's steps keep what the caller put there (the wrapper
+// zeroes them).  ckpt_every = 0 stores the words.
 //
 // Affine (gap = the open cost, ext the extend cost; a run of L gaps costs
 // gap + (L-1)*ext): E (the LEFT run) carries along each row, F (the TOP
@@ -47,31 +48,71 @@
 // score alone (affine: about 19 and 9), with no tensor-core form; the
 // 2-bit words are the only bytes it must write (a quarter of a byte per
 // cell, half a byte affine; the checkpoints are 4 or 8 bytes per C
-// cells), so the int32 issue rate bounds it, not memory.  This first
-// design runs one block on one SM (no inter-block protocol), so it
-// reaches at most 1/132 of the card's integer rate.
+// cells), so the int32 issue rate bounds it, not memory.  Within a step
+// the rps rows of a slot are one dependent chain, so a lane's step costs
+// the chain's latency and the loop's own work; the card's rate needs
+// many such chains in flight on every SM, and that work spread over
+// several steps.
 //
-// What the design does about it: one block of min(slots, 1024) threads;
-// thread p owns slots p, p+B, p+2B, ... (B = blockDim), so each thread
-// holds rps*slots/B cells of H (and E) and their word accumulators in
-// registers and consecutive threads store consecutive words.  The only
-// values that cross slots, a slot's last row of H (and F), go through
-// double-buffered shared arrays, so one __syncthreads() per step is the
-// whole protocol.  The substitution matrix and a window of the text and
-// of the top-row streams are staged in shared memory; the affine
-// variants' F arrays take 34 KB of dynamic shared memory beyond the
-// linear 46 KB of static arrays, past the 48 KB a block gets without
-// opting in.  At rps*slots/B = 64 cells per thread (rps 16, slots 4096)
-// the state exceeds the 64 registers a 1024-thread block allows, and the
-// compiler spills to local memory; the score-only variant (a template
-// parameter) keeps no word accumulators, and the linear variants (the
-// template parameter AFFINE) keep no E.  The TPU captures checkpoints
-// into vector scratch and flushes them once per word group because it
-// cannot scatter; here a thread stores its slot's rps values straight to
-// global memory at the step its slot reaches a checkpoint column.  Only
-// the score-only variant has that test in its loop (no caller wants
-// checkpoints with words, nor a score alone without them), so the
-// variant with words keeps the registers it had without checkpoints.
+// The design: a strip is a chain of bands that spans the card.  A band
+// is one warp and owns the 32/SPLIT consecutive slots [s0, s0+32/SPLIT);
+// each slot's rps rows are split over SPLIT consecutive lanes, rps/SPLIT
+// rows each, so a lane's chain a step is rps/SPLIT rows long.  A CTA is
+// SPLIT warps, the 32 slots [32v, 32v+32), so a 4096-slot strip is 128
+// CTAs, about one an SM.  Every band runs every global step t of its
+// slots, the pre-start steps included, with the same column j = t-s+1,
+// text letter t-s and word row t/16 as a single block would.
+//
+// Inside a band a lane runs SB consecutive steps (a block) an iteration:
+// block b at iteration b + d.  The only values that cross lanes, a lane's
+// last row of H (and F) after each step of its block, go to the next
+// lane through SB __shfl_up_sync at the start of the next iteration, so
+// each lane reads the lane above's previous iteration.  Within a slot the
+// lane below needs the same steps, across slots the steps before (the
+// last of the block before, kept in a carry, and all but the last of this
+// one).  So d grows by one from lane to lane (d = lane), but with SB = 1
+// only within a slot (d = slot_in_band*(SPLIT-1) + lane_in_slot).  A lane
+// before its first block publishes its boundary column (and F's minus
+// infinity), the "after step -1" values.  Lanes that run behind each
+// other finish their 16-step words at different iterations, so a finished
+// word is parked in registers and the warp stores them every 16/SB
+// iterations.
+//
+// Between bands: the band's last lane stores its last row after step t
+// into the band's stream in global memory, as one 64-bit word (the value,
+// and t+1 as a tag) with a relaxed store at GPU scope.  The next band's
+// lane 0 needs that value at step t+1 (band 0 reads bottom_in[t] at step
+// t, and at step 0 a band reads the upper slot's boundary value).  The
+// consumer warp loads 32 stream words at once (relaxed loads at GPU
+// scope, which read L2, never a stale L1 line), and uses the prefix whose
+// tags match; when its block's entries are not all there yet it sleeps
+// and reloads.  A 64-bit aligned access is single-copy atomic, so a
+// matching tag carries its value: no fence, no counter and no wait on the
+// producer's side.  The streams are full length ((bands-1) x steps
+// words, twice affine), so a producer never waits for a consumer.  The
+// last band writes bottom_out and fbot_out directly.  sa_wavefront_strip
+// zeroes the scratch (tags and ticket) on the launch's stream before
+// every launch, so a tag of an earlier launch is never taken for this
+// one's.
+//
+// Why it cannot deadlock: each CTA takes its number from a ticket in
+// global memory (atomicAdd at entry) and owns the bands of that number,
+// so band b waits only on band b-1, which belongs to the same CTA (its
+// warps are resident together) or to a CTA that took its ticket earlier
+// and so is resident already.  That holds for any grid and any residency,
+// without a cooperative launch.
+//
+// Registers: a lane holds rps/SPLIT rows of H, the pattern offsets, by
+// variant E, the word accumulators, the parked words and the trackers,
+// and SB values of each handed-on row; no block-wide launch bound caps
+// them, and ptxas spills nothing (chip_smoke.py checks every instance).
+// Shared memory holds the substitution matrix only.  SPLIT and SB are
+// fixed per (rps, variant) at the shape that measured fastest (split_of
+// and block_of below; probes/wavefront_shapes.py times every shape).  The
+// TPU captures checkpoints into vector scratch and flushes them once per
+// word group because it cannot scatter; here a lane stores its rows
+// straight to global memory at the step its slot reaches a checkpoint
+// column.  Only the score-only variant has that test in its loop.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,235 +123,421 @@ namespace {
 
 constexpr int32_t kNegInf = -(1 << 30);
 constexpr int32_t kNegHalf = kNegInf / 2;  // affine E/F "minus infinity"
-constexpr int kTextRing = 8192;    // bytes; >= slots + 512 for slots <= 4096
-constexpr int kBottomRing = 512;   // >= 2 prefetch chunks
-constexpr int kChunk = 256;        // prefetch granularity (steps)
 constexpr int kMaxSlots = 4096;
 constexpr int kMaxAlpha = 32;
-// Dynamic shared memory of the affine variants: the last rows' F,
-// double-buffered, then the ring of the F top-row stream.
-constexpr int kAffineSmemBytes = (2 * kMaxSlots + kBottomRing) * 4;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = 256;  // steps come in whole blocks of this many
+// Scratch: kCounterWords int32, then the bands' H streams, then (affine)
+// their F streams, each (bands-1) x steps 64-bit words.  The counters:
+// the ticket at 0; the stream windows all bands loaded at 1, and the
+// loads that found no entry ready at 2; each CTA's SM + 1 at kSmOffset +
+// its ticket; each band's first and last iteration on the GPU's
+// nanosecond clock (its low 32 bits: when its top input for step 0 or 1
+// was there, and at its end) at kBandStart + band and kBandEnd + band.
+// probes/wavefront_shapes.py --trace reads them.
+constexpr int kCounterWords = 4096;
+constexpr int kSmOffset = 1024;
+constexpr int kBandStart = 2048;
+constexpr int kBandEnd = 3072;
+// Reloads of a stream window before a waiting band gives up (each one a
+// load from L2 and a 64 ns sleep: tens of seconds).
+constexpr int kMaxSpins = 1 << 24;
 
-template <int RPS, int SPT, bool TRACK, bool DIRS, bool AFFINE>
-__global__ void __launch_bounds__(1024)
-wavefront_strip_kernel(const int32_t* __restrict__ text,
-                       const int32_t* __restrict__ bottom_in,
-                       const int32_t* __restrict__ fbot_in,
-                       const int32_t* __restrict__ pattern,
-                       const int32_t* __restrict__ score_matrix,
-                       const int32_t* __restrict__ left_in,
-                       const int32_t* __restrict__ left_e,
-                       int32_t* __restrict__ dirs,
-                       int32_t* __restrict__ dirs2,
-                       int32_t* __restrict__ bottom_out,
-                       int32_t* __restrict__ fbot_out,
-                       int32_t* __restrict__ rowmax,
-                       int32_t* __restrict__ argj,
-                       int32_t* __restrict__ snap,
-                       int32_t* __restrict__ ckpts,
-                       int32_t* __restrict__ ckpts_e,
-                       int steps, int slots, int k, int gap, int ext, int n,
-                       int m, int i0, int local, int ckpt_every) {
-  __shared__ uint8_t text_ring[kTextRing];
-  __shared__ int32_t bottom_ring[kBottomRing];
-  __shared__ int32_t last_row[2][kMaxSlots];
+// The shape of a launch, by rps and variant: the lanes a slot's rows are
+// split over (split_of) and the steps a lane runs an iteration (block_of).
+// Each is the fastest of splits 1, 2, 4 x blocks 1, 2, 4 at the main
+// path's shapes on an NVIDIA H100 80GB HBM3 at 700 W
+// (probes/wavefront_shapes.py --time; rps 1 and 2 take 1 x 4, the best at
+// rps 2 with words).  A longer chain a lane (fewer lanes) and a block of
+// more steps both cut the per-step overhead, and both lengthen the
+// pipeline's fill; the rps 16 words variant serves the full-width strip
+// and the checkpoint engine's 36,864-step tiles with one shape, the
+// strip's (4 x 4: 61.8 ms against 69.3 at 2 x 4; the tile 19.2 ms against
+// 16.0 at its best, 1 x 1).
+__host__ __device__ constexpr int split_of(int rps, bool dirs, bool affine) {
+  return rps >= 16 ? 4 : rps >= 8 ? 2 : (rps >= 4 && !dirs && !affine) ? 2
+                                                                         : 1;
+}
+
+__host__ __device__ constexpr int block_of(int rps, bool dirs, bool affine) {
+  return affine && (rps >= 16 || (rps >= 8 && !dirs)) ? 2 : 4;
+}
+
+__device__ __forceinline__ void store_tagged(unsigned long long* p,
+                                             int32_t value, int tag) {
+  const unsigned long long word =
+      (static_cast<unsigned long long>(static_cast<uint32_t>(tag)) << 32) |
+      static_cast<uint32_t>(value);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(word));
+}
+
+__device__ __forceinline__ unsigned long long load_tagged(
+    const unsigned long long* p) {
+  unsigned long long word;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(word) : "l"(p));
+  return word;
+}
+
+__device__ __forceinline__ uint32_t clock_ns() {
+  uint64_t ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return static_cast<uint32_t>(ns);
+}
+
+__device__ __forceinline__ int sm_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+
+template <int RPS, int SPLIT, int SB, bool TRACK, bool DIRS, bool AFFINE>
+__global__ void wavefront_strip_kernel(
+    const int32_t* __restrict__ text, const int32_t* __restrict__ bottom_in,
+    const int32_t* __restrict__ fbot_in, const int32_t* __restrict__ pattern,
+    const int32_t* __restrict__ score_matrix,
+    const int32_t* __restrict__ left_in, const int32_t* __restrict__ left_e,
+    int32_t* __restrict__ dirs, int32_t* __restrict__ dirs2,
+    int32_t* __restrict__ bottom_out, int32_t* __restrict__ fbot_out,
+    int32_t* __restrict__ rowmax, int32_t* __restrict__ argj,
+    int32_t* __restrict__ snap, int32_t* __restrict__ ckpts,
+    int32_t* __restrict__ ckpts_e, int32_t* __restrict__ counters,
+    unsigned long long* __restrict__ streams, int steps, int slots, int k,
+    int gap, int ext, int n, int m, int i0, int local, int ckpt_every) {
+  constexpr int RT = RPS / SPLIT;     // rows a lane
+  constexpr int SPB = kWarp / SPLIT;  // slots a band
+  // Iterations lane 31 runs behind lane 0 (d below), and iterations a
+  // lane takes to finish a word.
+  constexpr int kLastLag = SB == 1 ? (SPB - 1) * (SPLIT - 1) + SPLIT - 1
+                                   : kWarp - 1;
+  constexpr int kWordIters = 16 / SB;
   __shared__ int32_t sub[kMaxAlpha * kMaxAlpha];
-  extern __shared__ int32_t affine_smem[];  // AFFINE only
-  int32_t* const last_f = affine_smem;      // [2][kMaxSlots]
-  int32_t* const fbot_ring = affine_smem + 2 * kMaxSlots;
+  __shared__ int ticket;
 
-  const int p = threadIdx.x;
-  const int B = blockDim.x;
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(counters, 1);
+    counters[kSmOffset + ticket] = sm_id() + 1;
+  }
+  for (int x = threadIdx.x; x < k * k; x += blockDim.x) {
+    sub[x] = score_matrix[x];
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int bands = slots / SPB;
+  const int band = ticket * SPLIT + (threadIdx.x >> 5);
+  const int part = lane % SPLIT;       // which rps/SPLIT rows of the slot
+  const int s = band * SPB + lane / SPLIT;
+  // The lane runs block b (steps b*SB .. b*SB+SB-1) at iteration b + d.
+  const int d = SB == 1 ? (lane / SPLIT) * (SPLIT - 1) + part : lane;
+  const int r0 = part * RT;            // the lane's first row in its slot
+  const int ibase = i0 + RPS * s;
   // Checkpoint column j = (q+1)*C is captured when j & ckpt_mask == 0.
   const int ckpt_mask = DIRS ? -1 : ckpt_every - 1;
   const int ckpt_shift = DIRS ? 0 : __ffs(ckpt_every) - 1;
 
-  for (int x = p; x < k * k; x += B) sub[x] = score_matrix[x];
-  for (int x = p; x < kChunk && x < steps; x += B) {
-    text_ring[x] = static_cast<uint8_t>(text[x] & (kMaxAlpha - 1));
-    bottom_ring[x] = bottom_in[x];
-    if (AFFINE) fbot_ring[x] = fbot_in[x];
+  // Column-0 value of DP row i (1-based), without a left column.
+  auto boundary = [&](int i) -> int32_t {
+    if (local) return 0;
+    if (AFFINE) return i == 0 ? 0 : -(gap + (i - 1) * ext);
+    return -(gap * i);
+  };
+
+  // A word takes a step's 2 bits at its top and shifts right by 2, so
+  // after its 16th step it holds step 16g + x at bits 2x.
+  constexpr bool kParked = DIRS && kLastLag > 0;
+  int32_t H[RT];
+  uint32_t word[DIRS ? RT : 1];
+  int32_t E[AFFINE ? RT : 1];
+  uint32_t word2[AFFINE && DIRS ? RT : 1];
+  // Lanes that run behind each other finish their words at different
+  // iterations; a finished word waits here until the warp stores all at
+  // once.
+  uint32_t done[kParked ? RT : 1];
+  uint32_t done2[kParked && AFFINE ? RT : 1];
+  int done_row0 = -1;  // word row of done's first row; -1: nothing waits
+  int32_t pat[RT];
+  int32_t best_v[TRACK ? RT : 1];
+  int32_t best_j[TRACK ? RT : 1];
+  int32_t snap_v = kNegInf;
+  // The row above the lane's first row, at the previous step (at step 0,
+  // its boundary column): the first row's diagonal source.
+  int32_t topsh = left_in != nullptr ? left_in[r0 * slots + s]
+                                     : boundary(ibase + r0);
+#pragma unroll
+  for (int rr = 0; rr < RT; ++rr) {
+    const int r = r0 + rr;
+    H[rr] = left_in != nullptr ? left_in[(r + 1) * slots + s]
+                               : boundary(ibase + r + 1);
+    if (DIRS) word[rr] = 0;
+    if (AFFINE) {
+      E[rr] = left_e != nullptr ? left_e[(r + 1) * slots + s] : kNegHalf;
+      if (DIRS) word2[rr] = 0;
+    }
+    pat[rr] = (pattern[r * slots + s] & (kMaxAlpha - 1)) * k;
+    if (TRACK) {
+      best_v[rr] = kNegInf;
+      best_j[rr] = 0;
+    }
   }
 
-  int32_t H[SPT][RPS];
-  int32_t word[DIRS ? SPT : 1][DIRS ? RPS : 1];
-  int32_t E[AFFINE ? SPT : 1][AFFINE ? RPS : 1];
-  int32_t word2[AFFINE && DIRS ? SPT : 1][AFFINE && DIRS ? RPS : 1];
-  int32_t pat[SPT][RPS];
-  int32_t topsh[SPT];
-  int32_t best_v[TRACK ? SPT : 1][TRACK ? RPS : 1];
-  int32_t best_j[TRACK ? SPT : 1][TRACK ? RPS : 1];
-  int32_t snap_v[SPT];
-
+  // The lane's last row of H and F after each step of its latest block
+  // ("after step -1" before its first: the boundary column and F's minus
+  // infinity).
+  int32_t pub[SB], pub_f[SB];
 #pragma unroll
-  for (int q = 0; q < SPT; ++q) {
-    const int s = q * B + p;
-    const int ibase = i0 + RPS * s;
-    if (left_in != nullptr) {
-      topsh[q] = left_in[s];
-    } else if (local) {
-      topsh[q] = 0;
-    } else if (AFFINE) {
-      topsh[q] = ibase == 0 ? 0 : -(gap + (ibase - 1) * ext);
-    } else {
-      topsh[q] = -(gap * ibase);
-    }
-    snap_v[q] = kNegInf;
-#pragma unroll
-    for (int r = 0; r < RPS; ++r) {
-      if (left_in != nullptr) {
-        H[q][r] = left_in[(r + 1) * slots + s];
-      } else if (local) {
-        H[q][r] = 0;
-      } else {
-        H[q][r] = AFFINE ? -(gap + (ibase + r) * ext)
-                         : -(gap * (ibase + r + 1));
-      }
-      if (DIRS) word[q][r] = 0;
-      if (AFFINE) {
-        E[q][r] = left_e != nullptr ? left_e[(r + 1) * slots + s] : kNegHalf;
-        if (DIRS) word2[q][r] = 0;
-      }
-      pat[q][r] = (pattern[r * slots + s] & (kMaxAlpha - 1)) * k;
-      if (TRACK) {
-        best_v[q][r] = kNegInf;
-        best_j[q][r] = 0;
-      }
-    }
-    // Step 0 reads the neighbours' last rows "after step -1": the
-    // boundary column, and F's minus infinity.
-    last_row[1][s] = H[q][RPS - 1];
-    if (AFFINE) last_f[kMaxSlots + s] = kNegHalf;
+  for (int x = 0; x < SB; ++x) {
+    pub[x] = H[RT - 1];
+    pub_f[x] = kNegHalf;
   }
-  __syncthreads();
+  // The lane above's last row (and F) at the step before the block: with
+  // SB > 1 a slot's first lane needs it (the last value the lane above
+  // handed on an iteration earlier).
+  int32_t carry = pub[0], carry_f = kNegHalf;
+  // Lane 0's top input at step 0 in a band after the first: the upper
+  // slot's last row at the boundary column.
+  const int s0 = band * SPB;
+  const int32_t top0 =
+      band == 0 ? 0
+                : (left_in != nullptr ? left_in[RPS * slots + s0 - 1]
+                                      : boundary(i0 + RPS * s0));
+  const int64_t plane = static_cast<int64_t>(bands - 1) * steps;
+  const unsigned long long* up =
+      band > 0 ? streams + static_cast<int64_t>(band - 1) * steps : nullptr;
+  unsigned long long* mine =
+      band < bands - 1 ? streams + static_cast<int64_t>(band) * steps
+                       : nullptr;
+  // Lane 0 reads entries e0 .. e0+SB-1 of its top input at block b, e0 =
+  // b*SB - off (band 0: bottom_in[t] at step t; later bands: the upper
+  // band's value after step t-1, top0 for entry -1).  A window of 32
+  // entries from wbase, one a lane, of which the first wlen are valid.
+  const int off = band == 0 ? 0 : 1;
+  int wbase = 0, wlen = 0;
+  int32_t wv = 0, wf = 0;
+  int loads = 0, misses = 0;  // stream windows loaded; loads none ready
+  // The text letters of the lane's next block (text[t - s], 0 before the
+  // text), loaded an iteration ahead.
+  int letter[SB];
+#pragma unroll
+  for (int x = 0; x < SB; ++x) letter[x] = x - s >= 0 ? text[x - s] : 0;
+  // A slot's snap row: S[m, n] is in row snap_rr of this lane, if any.
+  const int snap_rr = m - 1 - ibase - r0;
 
-  for (int t = 0; t < steps; ++t) {
-    const int u = t & 15;
-    // Prefetch the text and top-row values of steps t+256 .. t+511; the
-    // ring slots they overwrite were last read >= 256 steps ago.
-    if ((t & (kChunk - 1)) == 0) {
-      for (int x = p; x < kChunk; x += B) {
-        const int tt = t + kChunk + x;
-        if (tt < steps) {
-          text_ring[tt & (kTextRing - 1)] =
-              static_cast<uint8_t>(text[tt] & (kMaxAlpha - 1));
-          bottom_ring[tt & (kBottomRing - 1)] = bottom_in[tt];
-          if (AFFINE) fbot_ring[tt & (kBottomRing - 1)] = fbot_in[tt];
-        }
-      }
+  const int blocks = steps / SB;
+  const int iters = blocks + kLastLag;
+  for (int tau = 0; tau < iters; ++tau) {
+    int32_t nb[SB], nb_f[SB];
+#pragma unroll
+    for (int x = 0; x < SB; ++x) {
+      nb[x] = __shfl_up_sync(kFull, pub[x], 1);
+      nb_f[x] = AFFINE ? __shfl_up_sync(kFull, pub_f[x], 1) : 0;
     }
-    const int32_t* prev_last = last_row[(t + 1) & 1];
-    int32_t* cur_last = last_row[t & 1];
-    const int32_t* prev_f = last_f + ((t + 1) & 1) * kMaxSlots;
-    int32_t* cur_f = last_f + (t & 1) * kMaxSlots;
-    int32_t f_stream = 0;  // the last slot's last-row F after this step
+    // The top input of the lane's first row at each step of its block:
+    // the lane above's block of this iteration within a slot; across
+    // slots the step before, so the carry and all but its last.
+    int32_t topv[SB], topf[SB];
 #pragma unroll
-    for (int q = 0; q < SPT; ++q) {
-      const int s = q * B + p;
-      const int j = t - s + 1;
-      const bool started = j >= 1;
-      const int w = t - s >= 0 ? text_ring[(t - s) & (kTextRing - 1)] : 0;
-      // The neighbour slot's last row at this column (its value after
-      // the previous step), and at the previous column (topsh).
-      const int32_t nb_top =
-          s == 0 ? bottom_ring[t & (kBottomRing - 1)] : prev_last[s - 1];
-      int32_t top = nb_top;
-      int32_t diag_src = topsh[q];
-      // F of the cell above (affine).
-      int32_t f_above = 0;
-      if (AFFINE) {
-        f_above = s == 0 ? fbot_ring[t & (kBottomRing - 1)] : prev_f[s - 1];
-      }
-      const int ibase = i0 + RPS * s;
-#pragma unroll
-      for (int r = 0; r < RPS; ++r) {
-        const int32_t diag = diag_src + sub[pat[q][r] + w];
-        const int32_t left = H[q][r];
-        int32_t gap_best, e_ext = 0, e_open = 0, e_new = 0, f_ext = 0,
-                          f_open = 0, f_new = 0;
-        if (AFFINE) {
-          e_ext = E[q][r] - ext;
-          e_open = left - gap;
-          e_new = max(e_ext, e_open);
-          f_ext = f_above - ext;
-          f_open = top - gap;
-          f_new = max(f_ext, f_open);
-          gap_best = max(e_new, f_new);
+    for (int x = 0; x < SB; ++x) {
+      const bool shifted = SB > 1 && part == 0;
+      topv[x] = !shifted ? nb[x] : (x == 0 ? carry : nb[x - 1]);
+      topf[x] = !shifted ? nb_f[x] : (x == 0 ? carry_f : nb_f[x - 1]);
+    }
+    carry = nb[SB - 1];
+    carry_f = nb_f[SB - 1];
+    if (tau < blocks) {  // lane 0's block tau: its top inputs
+      const int e0 = tau * SB - off;
+      if (e0 + SB > wbase + wlen) {
+        wbase = max(e0, 0);
+        const int x = wbase + lane;
+        if (band == 0) {
+          if (x < steps) {
+            wv = bottom_in[x];
+            if (AFFINE) wf = fbot_in[x];
+          }
+          wlen = kWarp;
         } else {
-          gap_best = max(top, left) - gap;
+          for (int spins = 0;; ++spins) {
+            // A band waits only on one that runs (the head note), so a
+            // wait of many seconds is a fault: end the launch with an
+            // error instead of hanging the card.
+            if (spins == kMaxSpins) __trap();
+            bool ok = true;
+            if (x < steps) {
+              const unsigned long long e = load_tagged(up + x);
+              ok = static_cast<int>(e >> 32) == x + 1;
+              wv = static_cast<int32_t>(static_cast<uint32_t>(e));
+              if (AFFINE) {
+                const unsigned long long ef = load_tagged(up + plane + x);
+                ok = ok && static_cast<int>(ef >> 32) == x + 1;
+                wf = static_cast<int32_t>(static_cast<uint32_t>(ef));
+              }
+            }
+            const unsigned ready = __ballot_sync(kFull, ok);
+            wlen = ready == kFull ? kWarp : __ffs(~ready) - 1;
+            ++loads;
+            if (wlen >= e0 + SB - wbase) break;
+            ++misses;
+            __nanosleep(64);
+          }
         }
-        const int32_t best = max(diag, gap_best);
-        const int32_t newval = local ? max(best, 0) : best;
-        const int32_t cur = started ? newval : left;
-        if (DIRS) {
-          const bool left_wins = AFFINE ? e_new >= f_new : left >= top;
-          int32_t d = diag > gap_best ? 1 : (left_wins ? 0 : 2);
-          if (local && best <= 0) d = 3;
-          word[q][r] = u == 0 ? d : (word[q][r] | (d << (2 * u)));
+        if (e0 <= 0 && lane == 0) counters[kBandStart + band] = clock_ns();
+      }
+#pragma unroll
+      for (int x = 0; x < SB; ++x) {
+        const int e = e0 + x;
+        const int32_t v = __shfl_sync(kFull, wv, max(e - wbase, 0));
+        const int32_t vf =
+            AFFINE ? __shfl_sync(kFull, wf, max(e - wbase, 0)) : 0;
+        if (lane == 0) {
+          topv[x] = e < 0 ? top0 : v;
+          topf[x] = e < 0 ? kNegHalf : vf;
+        }
+      }
+    }
+    const int blk = tau - d;
+    if (blk >= 0 && blk < blocks) {
+      int w[SB];
+#pragma unroll
+      for (int x = 0; x < SB; ++x) {
+        w[x] = letter[x] & (kMaxAlpha - 1);
+        const int tn = (blk + 1) * SB + x - s;  // next block's letter
+        if (blk + 1 < blocks && tn >= 0) letter[x] = text[tn];
+      }
+#pragma unroll
+      for (int x = 0; x < SB; ++x) {
+        const int t = blk * SB + x;
+        const int j = t - s + 1;
+        const bool started = j >= 1;
+        int32_t top = topv[x];
+        int32_t diag_src = x == 0 ? topsh : topv[x - 1];
+        int32_t f_above = topf[x];
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) {
+          const int32_t diag = diag_src + sub[pat[rr] + w[x]];
+          const int32_t left = H[rr];
+          int32_t gap_best, e_ext = 0, e_open = 0, e_new = 0, f_ext = 0,
+                            f_open = 0, f_new = 0;
           if (AFFINE) {
-            const int32_t d2 = static_cast<int32_t>(e_ext > e_open) |
-                               (static_cast<int32_t>(f_ext > f_open) << 1);
-            word2[q][r] = u == 0 ? d2 : (word2[q][r] | (d2 << (2 * u)));
+            e_ext = E[rr] - ext;
+            e_open = left - gap;
+            e_new = max(e_ext, e_open);
+            f_ext = f_above - ext;
+            f_open = top - gap;
+            f_new = max(f_ext, f_open);
+            gap_best = max(e_new, f_new);
+          } else {
+            gap_best = max(top, left) - gap;
+          }
+          const int32_t best = max(diag, gap_best);
+          const int32_t newval = local ? max(best, 0) : best;
+          const int32_t cur = started ? newval : left;
+          if (DIRS) {
+            const bool left_wins = AFFINE ? e_new >= f_new : left >= top;
+            int32_t dir = diag > gap_best ? 1 : (left_wins ? 0 : 2);
+            if (local && best <= 0) dir = 3;
+            word[rr] = (word[rr] >> 2) | (static_cast<uint32_t>(dir) << 30);
+            if (AFFINE) {
+              const uint32_t d2 = static_cast<uint32_t>(e_ext > e_open) |
+                                  (static_cast<uint32_t>(f_ext > f_open) << 1);
+              word2[rr] = (word2[rr] >> 2) | (d2 << 30);
+            }
+          }
+          if (AFFINE && started) {
+            E[rr] = e_new;
+            f_above = f_new;
+          }
+          if (TRACK) {
+            const int i = ibase + r0 + rr + 1;
+            const bool row_ok = local ? i <= m : i == m;
+            if (started && j <= n && row_ok && newval > best_v[rr]) {
+              best_v[rr] = newval;
+              best_j[rr] = j;
+            }
+          }
+          diag_src = left;
+          top = cur;
+          H[rr] = cur;
+        }
+        if (!TRACK && j == n) {
+#pragma unroll
+          for (int rr = 0; rr < RT; ++rr) {
+            if (rr == snap_rr) snap_v = H[rr];
           }
         }
-        if (AFFINE && started) {
-          E[q][r] = e_new;
-          f_above = f_new;
-        }
-        const int i = ibase + r + 1;
-        if (TRACK) {
-          const bool row_ok = local ? i <= m : i == m;
-          if (started && j <= n && row_ok && newval > best_v[q][r]) {
-            best_v[q][r] = newval;
-            best_j[q][r] = j;
+        pub[x] = H[RT - 1];
+        pub_f[x] = f_above;
+        if (!DIRS && started && (j & ckpt_mask) == 0) {
+          const int64_t row0 =
+              static_cast<int64_t>((j >> ckpt_shift) - 1) * RPS + r0;
+#pragma unroll
+          for (int rr = 0; rr < RT; ++rr) {
+            ckpts[(row0 + rr) * slots + s] = H[rr];
+            if (AFFINE) ckpts_e[(row0 + rr) * slots + s] = E[rr];
           }
-        } else if (i == m && j == n) {
-          snap_v[q] = newval;
         }
-        diag_src = left;
-        top = cur;
-        H[q][r] = cur;
-      }
-      topsh[q] = nb_top;
-      cur_last[s] = H[q][RPS - 1];
-      if (AFFINE) {
-        cur_f[s] = f_above;
-        if (q == SPT - 1) f_stream = f_above;
-      }
-      if (!DIRS && started && (j & ckpt_mask) == 0) {
-        const int64_t row0 =
-            static_cast<int64_t>((j >> ckpt_shift) - 1) * RPS;
+        if (DIRS && (t & 15) == 15) {
+          if (kParked) {
 #pragma unroll
-        for (int r = 0; r < RPS; ++r) {
-          ckpts[(row0 + r) * slots + s] = H[q][r];
-          if (AFFINE) ckpts_e[(row0 + r) * slots + s] = E[q][r];
-        }
-      }
-      if (DIRS && u == 15) {
-        const int64_t row0 = static_cast<int64_t>(t >> 4) * RPS;
+            for (int rr = 0; rr < RT; ++rr) {
+              done[rr] = word[rr];
+              if (AFFINE) done2[rr] = word2[rr];
+            }
+            done_row0 = (t >> 4) * RPS + r0;
+          } else {
+            const int64_t row0 = static_cast<int64_t>(t >> 4) * RPS + r0;
 #pragma unroll
-        for (int r = 0; r < RPS; ++r) {
-          dirs[(row0 + r) * slots + s] = word[q][r];
-          if (AFFINE) dirs2[(row0 + r) * slots + s] = word2[q][r];
+            for (int rr = 0; rr < RT; ++rr) {
+              dirs[(row0 + rr) * slots + s] = static_cast<int32_t>(word[rr]);
+              if (AFFINE) {
+                dirs2[(row0 + rr) * slots + s] =
+                    static_cast<int32_t>(word2[rr]);
+              }
+            }
+          }
         }
       }
+      topsh = topv[SB - 1];
+      if (lane == kWarp - 1) {
+#pragma unroll
+        for (int x = 0; x < SB; ++x) {
+          const int t = blk * SB + x;
+          if (mine != nullptr) {
+            store_tagged(mine + t, pub[x], t + 1);
+            if (AFFINE) store_tagged(mine + plane + t, pub_f[x], t + 1);
+          } else {
+            bottom_out[t] = pub[x];
+            if (AFFINE) fbot_out[t] = pub_f[x];
+          }
+        }
+      }
+    }  // blk in [0, blocks)
+    // Every 16 steps the warp stores the words its lanes finished since
+    // the last time (each lane finishes one every 16 steps).
+    if (kParked && ((tau % kWordIters) == kWordIters - 1 ||
+                    tau == iters - 1) &&
+        done_row0 >= 0) {
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) {
+        const int64_t x = static_cast<int64_t>(done_row0 + rr) * slots + s;
+        dirs[x] = static_cast<int32_t>(done[rr]);
+        if (AFFINE) dirs2[x] = static_cast<int32_t>(done2[rr]);
+      }
+      done_row0 = -1;
     }
-    if (p == B - 1) {
-      bottom_out[t] = H[SPT - 1][RPS - 1];
-      if (AFFINE) fbot_out[t] = f_stream;
-    }
-    __syncthreads();
   }
 
+  if (lane == 0) {
+    counters[kBandEnd + band] = clock_ns();
+    atomicAdd(counters + 1, loads);
+    atomicAdd(counters + 2, misses);
+  }
+  // snap: the lane holding row m of its slot, else the slot's first lane.
+  const int mrow = m - 1 - ibase;
+  if (part == (mrow >= 0 && mrow < RPS ? mrow / RT : 0)) snap[s] = snap_v;
 #pragma unroll
-  for (int q = 0; q < SPT; ++q) {
-    const int s = q * B + p;
-    snap[s] = snap_v[q];
-#pragma unroll
-    for (int r = 0; r < RPS; ++r) {
-      rowmax[r * slots + s] = TRACK ? best_v[q][r] : kNegInf;
-      argj[r * slots + s] = TRACK ? best_j[q][r] : 0;
-    }
+  for (int rr = 0; rr < RT; ++rr) {
+    rowmax[(r0 + rr) * slots + s] = TRACK ? best_v[rr] : kNegInf;
+    argj[(r0 + rr) * slots + s] = TRACK ? best_j[rr] : 0;
   }
 }
 
@@ -331,58 +558,160 @@ struct Args {
   int32_t* snap;
   int32_t* ckpts;
   int32_t* ckpts_e;
+  int32_t* counters;
+  unsigned long long* streams;
   int steps, slots, k, gap, ext, n, m, i0, local, ckpt_every;
 };
 
-template <int RPS, int SPT, bool TRACK, bool DIRS, bool AFFINE>
-cudaError_t launch(const Args& a, int threads, cudaStream_t stream) {
-  auto kernel = wavefront_strip_kernel<RPS, SPT, TRACK, DIRS, AFFINE>;
-  const int smem = AFFINE ? kAffineSmemBytes : 0;
-  if (AFFINE) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<1, threads, smem, stream>>>(
-      a.text, a.bottom_in, a.fbot_in, a.pattern, a.score_matrix, a.left_in,
-      a.left_e, a.dirs, a.dirs2, a.bottom_out, a.fbot_out, a.rowmax, a.argj,
-      a.snap, a.ckpts, a.ckpts_e, a.steps, a.slots, a.k, a.gap, a.ext, a.n,
-      a.m, a.i0, a.local, a.ckpt_every);
+template <int RPS, int SPLIT, int SB, bool TRACK, bool DIRS, bool AFFINE>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  // One CTA of SPLIT warps (SPLIT bands) for each 32 slots.
+  wavefront_strip_kernel<RPS, SPLIT, SB, TRACK, DIRS, AFFINE>
+      <<<a.slots / kWarp, SPLIT * kWarp, 0, stream>>>(
+          a.text, a.bottom_in, a.fbot_in, a.pattern, a.score_matrix,
+          a.left_in, a.left_e, a.dirs, a.dirs2, a.bottom_out, a.fbot_out,
+          a.rowmax, a.argj, a.snap, a.ckpts, a.ckpts_e, a.counters,
+          a.streams, a.steps, a.slots, a.k, a.gap, a.ext, a.n, a.m, a.i0,
+          a.local, a.ckpt_every);
   return cudaGetLastError();
 }
 
+template <int RPS, int SPLIT, int SB, bool DIRS, bool AFFINE>
+cudaError_t launch_track(const Args& a, bool track, cudaStream_t stream) {
+  return track ? launch<RPS, SPLIT, SB, true, DIRS, AFFINE>(a, stream)
+               : launch<RPS, SPLIT, SB, false, DIRS, AFFINE>(a, stream);
+}
+
+#ifdef SA_WAVEFRONT_ALL_SHAPES
+template <int RPS, int SPLIT, bool DIRS, bool AFFINE>
+cudaError_t launch_block(const Args& a, int block, bool track,
+                         cudaStream_t stream) {
+  switch (block) {
+    case 1: return launch_track<RPS, SPLIT, 1, DIRS, AFFINE>(a, track, stream);
+    case 2: return launch_track<RPS, SPLIT, 2, DIRS, AFFINE>(a, track, stream);
+    case 4: return launch_track<RPS, SPLIT, 4, DIRS, AFFINE>(a, track, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
+
+// The variant's own shape (split_of, block_of), or with
+// SA_WAVEFRONT_ALL_SHAPES (probes/wavefront_shapes.py) any split of 1, 2, 4
+// that divides RPS and any block of 1, 2, 4.
+template <int RPS, bool DIRS, bool AFFINE>
+cudaError_t launch_shape(const Args& a, int split, int block, bool track,
+                         cudaStream_t stream) {
+  constexpr int kSplit = split_of(RPS, DIRS, AFFINE);
+  constexpr int kBlock = block_of(RPS, DIRS, AFFINE);
+  if (split == kSplit && block == kBlock) {
+    return launch_track<RPS, kSplit, kBlock, DIRS, AFFINE>(a, track, stream);
+  }
+#ifdef SA_WAVEFRONT_ALL_SHAPES
+  if (split == 1) {
+    return launch_block<RPS, 1, DIRS, AFFINE>(a, block, track, stream);
+  }
+  if constexpr (RPS % 2 == 0) {
+    if (split == 2) {
+      return launch_block<RPS, 2, DIRS, AFFINE>(a, block, track, stream);
+    }
+  }
+  if constexpr (RPS % 4 == 0) {
+    if (split == 4) {
+      return launch_block<RPS, 4, DIRS, AFFINE>(a, block, track, stream);
+    }
+  }
+#endif
+  return cudaErrorInvalidValue;
+}
+
 // Words exactly when there are no checkpoints (the score-only variant).
-template <int RPS, int SPT, bool TRACK>
-cudaError_t launch_variant(const Args& a, bool affine, int threads,
-                           cudaStream_t stream) {
+template <int RPS>
+cudaError_t launch_variant(const Args& a, int split, int block, bool track,
+                           bool affine, cudaStream_t stream) {
   const bool dirs = a.ckpt_every == 0;
   if (affine) {
-    return dirs ? launch<RPS, SPT, TRACK, true, true>(a, threads, stream)
-                : launch<RPS, SPT, TRACK, false, true>(a, threads, stream);
+    return dirs ? launch_shape<RPS, true, true>(a, split, block, track, stream)
+                : launch_shape<RPS, false, true>(a, split, block, track,
+                                                 stream);
   }
-  return dirs ? launch<RPS, SPT, TRACK, true, false>(a, threads, stream)
-              : launch<RPS, SPT, TRACK, false, false>(a, threads, stream);
+  return dirs ? launch_shape<RPS, true, false>(a, split, block, track, stream)
+              : launch_shape<RPS, false, false>(a, split, block, track,
+                                                stream);
 }
 
-template <int RPS, int SPT>
-cudaError_t launch_flags(const Args& a, bool track, bool affine, int threads,
-                         cudaStream_t stream) {
-  return track ? launch_variant<RPS, SPT, true>(a, affine, threads, stream)
-               : launch_variant<RPS, SPT, false>(a, affine, threads, stream);
+int64_t scratch_bytes(int steps, int slots, int split, int affine) {
+  const int64_t bands = static_cast<int64_t>(slots) / (kWarp / split);
+  return kCounterWords * 4 +
+         (bands - 1) * steps * 8 * (affine ? 2 : 1);
 }
 
-template <int RPS>
-cudaError_t launch_spt(const Args& a, int spt, bool track, bool affine,
-                       int threads, cudaStream_t stream) {
-  switch (spt) {
-    case 1: return launch_flags<RPS, 1>(a, track, affine, threads, stream);
-    case 2: return launch_flags<RPS, 2>(a, track, affine, threads, stream);
-    case 4: return launch_flags<RPS, 4>(a, track, affine, threads, stream);
+int run(const int32_t* text, const int32_t* bottom_in,
+        const int32_t* fbot_in, const int32_t* pattern,
+        const int32_t* score_matrix, const int32_t* left_in,
+        const int32_t* left_e, int32_t* dirs, int32_t* dirs2,
+        int32_t* bottom_out, int32_t* fbot_out, int32_t* rowmax,
+        int32_t* argj, int32_t* snap, int32_t* ckpts, int32_t* ckpts_e,
+        int steps, int slots, int rps, int k, int gap, int ext, int n,
+        int m, int i0, int local, int semi, int affine, int ckpt_every,
+        int split, int block, void* scratch, void* stream) {
+  const bool words = ckpt_every == 0;
+  if (steps <= 0 || steps % kChunk != 0 || slots % 128 != 0 ||
+      slots > kMaxSlots || k < 1 || k > kMaxAlpha || (local && semi) ||
+      ckpt_every < 0 || (words && dirs == nullptr) || scratch == nullptr ||
+      (split != 1 && split != 2 && split != 4) || rps % split != 0 ||
+      (block != 1 && block != 2 && block != 4) ||
+      (!words &&
+       (ckpts == nullptr || (ckpt_every & (ckpt_every - 1)) != 0 ||
+        ckpt_every < slots + 16)) ||
+      (affine &&
+       (fbot_in == nullptr || fbot_out == nullptr ||
+        (left_in != nullptr && left_e == nullptr) ||
+        (words ? dirs2 == nullptr : ckpts_e == nullptr)))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The ticket, the SM log and every stream tag start at 0 each launch.
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, static_cast<size_t>(scratch_bytes(steps, slots, split,
+                                                    affine)),
+      s);
+  if (err != cudaSuccess) return err;
+  auto* counters = static_cast<int32_t*>(scratch);
+  const Args a{text, bottom_in, fbot_in, pattern, score_matrix, left_in,
+               left_e, dirs, dirs2, bottom_out, fbot_out, rowmax, argj, snap,
+               ckpts, ckpts_e, counters,
+               reinterpret_cast<unsigned long long*>(counters + kCounterWords),
+               steps, slots, k, gap, ext, n, m, i0, local, ckpt_every};
+  const bool track = local || semi;
+  const bool aff = affine != 0;
+  switch (rps) {
+    case 1: return launch_variant<1>(a, split, block, track, aff, s);
+    case 2: return launch_variant<2>(a, split, block, track, aff, s);
+    case 4: return launch_variant<4>(a, split, block, track, aff, s);
+    case 8: return launch_variant<8>(a, split, block, track, aff, s);
+    case 16: return launch_variant<16>(a, split, block, track, aff, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// Lanes a slot's rows are split over, and steps a lane runs an
+// iteration, for a launch of this rps and variant (ckpt_every 0: with
+// words).
+extern "C" int sa_wavefront_split(int rps, int affine, int ckpt_every) {
+  return split_of(rps, ckpt_every == 0, affine != 0);
+}
+
+extern "C" int sa_wavefront_block(int rps, int affine, int ckpt_every) {
+  return block_of(rps, ckpt_every == 0, affine != 0);
+}
+
+// Bytes of the scratch a launch needs at that split.
+extern "C" long long sa_wavefront_scratch_bytes(int steps, int slots,
+                                                int split, int affine) {
+  return scratch_bytes(steps, slots, split, affine);
+}
 
 // Fills one strip.  text / bottom_in: (steps,) int32; pattern: (rps,
 // slots) int32; score_matrix: (k, k) int32; left_in: null (the arithmetic
@@ -396,12 +725,14 @@ cudaError_t launch_spt(const Args& a, int spt, bool track, bool affine,
 // column's E, left_e (rps+1, slots) (row 0 unused); and writes dirs2
 // (shaped like dirs) with the words, fbot_out (steps,), and ckpts_e
 // (shaped like ckpts) with the checkpoints.  Linear launches pass null
-// for those.  steps is a multiple of 256, slots a multiple of 128 up to
-// 1024 or one of 2048 and 4096, rps one of 1, 2, 4, 8, 16, k <= 32,
-// ckpt_every 0 (words) or a power of two >= slots + 16 (score-only with
-// checkpoints).  semi selects row-m tracking on the global recurrence.
-// Returns the launch's cudaError_t (0 on success); the kernel runs on
-// `stream`.
+// for those.  scratch: sa_wavefront_scratch_bytes(steps, slots,
+// sa_wavefront_split(rps, affine, ckpt_every), affine) bytes of device
+// memory, 8-byte aligned, the caller's; it is zeroed on `stream` first.
+// steps is a multiple of 256, slots a multiple of 128 up to 1024 or one
+// of 2048 and 4096, rps one of 1, 2, 4, 8, 16, k <= 32, ckpt_every 0
+// (words) or a power of two >= slots + 16 (score-only with checkpoints).
+// semi selects row-m tracking on the global recurrence.  Returns the
+// launch's cudaError_t (0 on success); the kernel runs on `stream`.
 extern "C" int sa_wavefront_strip(
     const int32_t* text, const int32_t* bottom_in, const int32_t* fbot_in,
     const int32_t* pattern, const int32_t* score_matrix,
@@ -409,35 +740,31 @@ extern "C" int sa_wavefront_strip(
     int32_t* dirs2, int32_t* bottom_out, int32_t* fbot_out, int32_t* rowmax,
     int32_t* argj, int32_t* snap, int32_t* ckpts, int32_t* ckpts_e,
     int steps, int slots, int rps, int k, int gap, int ext, int n, int m,
-    int i0, int local, int semi, int affine, int ckpt_every, void* stream) {
-  const bool words = ckpt_every == 0;
-  if (steps <= 0 || steps % kChunk != 0 || slots % 128 != 0 ||
-      slots > kMaxSlots || k < 1 || k > kMaxAlpha || (local && semi) ||
-      ckpt_every < 0 || (words && dirs == nullptr) ||
-      (!words &&
-       (ckpts == nullptr || (ckpt_every & (ckpt_every - 1)) != 0 ||
-        ckpt_every < slots + 16)) ||
-      (affine &&
-       (fbot_in == nullptr || fbot_out == nullptr ||
-        (left_in != nullptr && left_e == nullptr) ||
-        (words ? dirs2 == nullptr : ckpts_e == nullptr)))) {
-    return cudaErrorInvalidValue;
-  }
-  const int threads = slots < 1024 ? slots : 1024;
-  const int spt = slots / threads;
-  const bool track = local || semi;
-  const Args a{text, bottom_in, fbot_in, pattern, score_matrix, left_in,
-               left_e, dirs, dirs2, bottom_out, fbot_out, rowmax, argj, snap,
-               ckpts, ckpts_e, steps, slots, k, gap, ext, n, m, i0, local,
-               ckpt_every};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aff = affine != 0;
-  switch (rps) {
-    case 1: return launch_spt<1>(a, spt, track, aff, threads, s);
-    case 2: return launch_spt<2>(a, spt, track, aff, threads, s);
-    case 4: return launch_spt<4>(a, spt, track, aff, threads, s);
-    case 8: return launch_spt<8>(a, spt, track, aff, threads, s);
-    case 16: return launch_spt<16>(a, spt, track, aff, threads, s);
-    default: return cudaErrorInvalidValue;
-  }
+    int i0, int local, int semi, int affine, int ckpt_every, void* scratch,
+    void* stream) {
+  return run(text, bottom_in, fbot_in, pattern, score_matrix, left_in,
+             left_e, dirs, dirs2, bottom_out, fbot_out, rowmax, argj, snap,
+             ckpts, ckpts_e, steps, slots, rps, k, gap, ext, n, m, i0, local,
+             semi, affine, ckpt_every,
+             sa_wavefront_split(rps, affine, ckpt_every),
+             sa_wavefront_block(rps, affine, ckpt_every), scratch, stream);
 }
+
+#ifdef SA_WAVEFRONT_ALL_SHAPES
+// sa_wavefront_strip at a given split (1, 2 or 4, dividing rps) and block
+// (1, 2 or 4), for probes/wavefront_shapes.py.
+extern "C" int sa_wavefront_strip_shape(
+    const int32_t* text, const int32_t* bottom_in, const int32_t* fbot_in,
+    const int32_t* pattern, const int32_t* score_matrix,
+    const int32_t* left_in, const int32_t* left_e, int32_t* dirs,
+    int32_t* dirs2, int32_t* bottom_out, int32_t* fbot_out, int32_t* rowmax,
+    int32_t* argj, int32_t* snap, int32_t* ckpts, int32_t* ckpts_e,
+    int steps, int slots, int rps, int k, int gap, int ext, int n, int m,
+    int i0, int local, int semi, int affine, int ckpt_every, int split,
+    int block, void* scratch, void* stream) {
+  return run(text, bottom_in, fbot_in, pattern, score_matrix, left_in,
+             left_e, dirs, dirs2, bottom_out, fbot_out, rowmax, argj, snap,
+             ckpts, ckpts_e, steps, slots, rps, k, gap, ext, n, m, i0, local,
+             semi, affine, ckpt_every, split, block, scratch, stream);
+}
+#endif

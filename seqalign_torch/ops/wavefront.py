@@ -8,7 +8,9 @@ the skewed word format of the JAX package: word (t//16)*rps + r of slot
 s holds steps 16(t//16) .. 16(t//16)+15 of row r at bits 2*(t%16), so
 the native ``sa_traceback_*_skewed`` walkers and K2 read it unchanged.
 
-``wavefront_strip`` launches the CUDA kernel (``csrc/wavefront.cu``) for
+``wavefront_strip`` launches the CUDA kernel (``csrc/wavefront.cu``: the
+strip as a chain of one-warp bands over the whole card, handing their
+last rows on through streams in a scratch buffer the wrapper owns) for
 tensors on a CUDA device and runs ``wavefront_strip_plain`` for tensors
 on the CPU.  Global, local and semi-global, with linear or affine
 (Gotoh) gap costs; with the direction words (and, affine, the run-bit
@@ -33,6 +35,14 @@ DIR_STEPS_PER_WORD = 16
 NEG_INF = -(1 << 30)
 NEG_HALF = NEG_INF // 2  # affine E/F "minus infinity": survives extends
 RPS_CHOICES = (1, 2, 4, 8, 16)
+# K1's scratch (csrc/wavefront.cu): SCRATCH_COUNTERS int32 (the ticket,
+# the windows loaded and those found empty, from SM_LOG each CTA's SM + 1,
+# from BAND_START / BAND_END each band's first and last iteration in ns),
+# then the bands' tagged streams.
+SCRATCH_COUNTERS = 4096
+SM_LOG = 1024
+BAND_START = 2048
+BAND_END = 3072
 
 
 def strip_rows(r: int = ROWS_PER_SLOT) -> int:
@@ -187,7 +197,27 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
     score-only fill with checkpoints with it.  Returns (launch, outputs) with
     the outputs of ``wavefront_strip``; each ``launch()`` runs the kernel
     once on the current stream, raising if the launch failed, and counts
-    nothing (the wrapper counts its launches)."""
+    nothing (the wrapper counts its launches).  ``launch.scratch`` is the
+    launch's scratch (the bands' streams), re-zeroed by every
+    ``launch()``; ``launch_sms(launch)`` reads where its CTAs ran."""
+    lib = library("wavefront")
+    shape = tuple(_c(lib, name, 3)(rps, int(affine), int(ckpt_every))
+                  for name in ("sa_wavefront_split", "sa_wavefront_block"))
+    return split_launch(lib, None, shape, text_steps, bottom_in,
+                        pattern_slots, score_matrix, gap, n, m, i0, k_alpha,
+                        local, rps, ckpt_every, slots, semi, left_in, affine,
+                        ext, fbot_in, left_e)
+
+
+def split_launch(lib, entry, shape, text_steps, bottom_in, pattern_slots,
+                 score_matrix, gap, n, m, i0, k_alpha, local, rps, ckpt_every,
+                 slots, semi, left_in, affine, ext, fbot_in, left_e):
+    """``kernel_launch`` through ``lib`` (a build of ``csrc/wavefront.cu``)
+    at ``shape`` = (lanes a slot, steps a lane's iteration): ``entry``
+    None calls ``sa_wavefront_strip`` (which takes its own shape,
+    ``shape`` then being it), else the C function ``entry``, which takes
+    the shape before the scratch."""
+    split = shape[0]
     device = text_steps.device
     i32 = torch.int32
     num_blocks = text_steps.shape[0]
@@ -209,6 +239,14 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
         dirs2 = None if dirs is None else torch.empty_like(dirs)
         ckpts_e = None if ckpts is None else torch.zeros_like(ckpts)
         fbot_out = torch.empty_like(bottom_out)
+    # The bands' streams, the ticket and the CTAs' SM log (csrc/
+    # wavefront.cu's head note); the C entry point zeroes them on the
+    # stream before every launch.
+    nbytes = _c(lib, "sa_wavefront_scratch_bytes", 4,
+                ctypes.c_longlong)(steps, slots, split, int(affine))
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=device)
+    fn = _entry(lib, entry or "sa_wavefront_strip", entry is not None)
+    tail = tuple(shape) if entry else ()
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -216,7 +254,7 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel()(
+            rc = fn(
                 text_steps.data_ptr(), bottom_in.data_ptr(), ptr(fbot_in),
                 pattern_slots.data_ptr(), score_matrix.data_ptr(),
                 ptr(left_in), ptr(left_e), ptr(dirs), ptr(dirs2),
@@ -224,21 +262,38 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
                 argj.data_ptr(), snap.data_ptr(), ptr(ckpts), ptr(ckpts_e),
                 steps, slots, rps, k_alpha, int(gap), int(ext), int(n),
                 int(m), int(i0), int(local), int(semi), int(affine),
-                int(ckpt_every), stream,
+                int(ckpt_every), *tail, scratch.data_ptr(), stream,
             )
         check_launch("wavefront", rc)
 
+    launch.scratch = scratch
+    launch.ctas = slots // 32
     out = (dirs, bottom_out, rowmax, argj, snap, ckpts)
     if affine:
         out += (dirs2, fbot_out, ckpts_e)
     return launch, out
 
 
-def _kernel():
-    fn = library("wavefront").sa_wavefront_strip
+def launch_sms(launch) -> list[int]:
+    """The SM each CTA of ``launch``'s latest run ran on (the SM log of
+    its scratch, by ticket), after the run has finished."""
+    log = launch.scratch.view(torch.int32)[SM_LOG:SM_LOG + launch.ctas]
+    return [int(x) - 1 for x in log.cpu()]
+
+
+def _c(lib, name, nargs, restype=ctypes.c_int):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * nargs
+        fn.restype = restype
+    return fn
+
+
+def _entry(lib, name, with_split):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 16 + [i] * 13 + [p]
+        fn.argtypes = [p] * 16 + [i] * (15 if with_split else 13) + [p, p]
         fn.restype = ctypes.c_int
     return fn
 

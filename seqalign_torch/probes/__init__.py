@@ -1,9 +1,12 @@
-"""Dev probes of the card: the Hopper counterparts of the JAX package's
-Pallas probes, each runnable as ``python -m seqalign_torch.probes.<name>``
-on a host with a CUDA device.
+"""Dev probes of the card, each runnable as ``python -m
+seqalign_torch.probes.<name>`` on a host with a CUDA device: the Hopper
+counterparts of the JAX package's Pallas probes, and K1's shapes.
 
 * ``dpx16`` (P2, ``csrc/probe_dpx16.cu``): which packed int16 formulations
   of the int16 cell mode's operations are exact, and their rates;
 * ``walk_costs`` (P1, ``csrc/probe_chase.cu``): the cost of a dependent
-  chain of loads from shared memory, L2 and HBM.
+  chain of loads from shared memory, L2 and HBM;
+* ``wavefront_shapes`` (K1, ``csrc/wavefront.cu``): K1 at every shape
+  (lanes a slot, steps a lane's iteration), exact and timed, and K1's own
+  trace.
 """
