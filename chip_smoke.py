@@ -119,13 +119,18 @@ without its last line:
     each affine kernel's launch alone is timed (K1 with words at full
     width, one phase-1 strip, one full-size interior tile, K2), held
     against the plain versions at phase 13's shapes.
-16. K5 (the strip engine's prefix-max fill) against its plain version,
-    on the card: global and local, with words and score-only, DNA and
-    protein, a pair's first region and an interior region of a real
-    tiled fill (row_base and strip_off > 0, the state carried, the left
-    column strip 0's right one), at 1,024, 32,768, 49,152 and 65,536
-    columns with columns past n, over STRIP_PLAIN_ROWS rows (512 at
-    1,024).  Every output (words, last row, right column, state) exact.
+16. K5 (the strip engine's region fill, a chain of warp bands) against
+    its plain version, on the card: global and local, with words and
+    score-only, DNA and protein, a pair's first region and an interior
+    region of a real tiled fill (row_base and strip_off > 0, the state
+    carried, the left column strip 0's right one), at 1,024, 32,768,
+    49,152 and 65,536 columns with columns past n, over STRIP_PLAIN_ROWS
+    rows (512 at 1,024); then regions of 16 bands and more
+    (STRIP_BAND_REGIONS: 2,048 x 4,096, m and n mid-band).  Every output
+    (words, last row, right column, state) exact.  K5's launch closure,
+    with words and score-only, runs 5 times on the same inputs, each run
+    exact, with the outputs and the bands' stream values poisoned
+    between runs.
 17. The strip engine through ``-g`` (``SEQALIGN_PAIR_ENGINE=strip``),
     with the native walk and with ``SEQALIGN_TRACEBACK=device`` (K4): the
     main path's global and local pairs, GCA_003434045 x NC_001490.1
@@ -138,13 +143,17 @@ without its last line:
 18. The strip engine at full width: ``-g`` on phase 5's pair (tiled, 9
     strips x 6 blocks, 3.59 GB of words on the host) in both traceback
     modes, byte-identical to phase 5's output, its score the oracle's;
-    the wall, K5's launches (CUDA events), the walk and peak memory;
+    the wall, K5's launches (CUDA events), the walk, the words' way into
+    the host array (each block's wait for its D2H and its copy, host
+    clock), the print and peak memory;
     then ``tiled_fill_score`` of phase 12's long pair (7 strips x 13
     blocks) against the oracle's score.  Whole blocks of these runs
     (8,192 x 32,768 interior and 7,680 x 32,768 last, with words; 16,384
     x 32,768 score-only) through the wrapper against the plain version
-    on their own inputs; the interior block's launch alone and its
-    words' D2H.
+    on their own inputs; the launches alone of the interior block (its
+    CTAs and the SMs they ran on logged), the long pair's block and
+    phase 17's single region (CUDA events, best of 3), each beside its
+    bound, and the interior block's words' D2H.
 19. Affine K3 (score-only and with the words and run bits) and affine
     K4 against their plain versions, on the card: global, local and
     semi-global, DNA and protein, extend below open and equal to it,
@@ -192,8 +201,14 @@ without its last line:
     dependent chain of loads over tables in shared memory (32 KiB, 128
     KiB), L2 (16 MiB) and HBM (1 GiB), each result against its plain
     version, ns a step.
-27. A JSON line of the kernels, the card's name and power limit from
-    nvidia-smi, and ``{"ok": true, "device": {...}}``.
+27. A ``launch_ledger`` JSON line (each kernel row's launches and device
+    ms summed over every launch made under a user entry point, timed
+    between CUDA events from phase 2 on, in all and by phase), a
+    ``workload_ledger`` line (the same over WORKLOAD_PHASES, one run of
+    each workload, the rows in order of their longest launch), a JSON
+    line of the kernels (each with its sums as ``main_path_ms`` and
+    ``workload_ms``), the card's name and power limit from nvidia-smi,
+    and ``{"ok": true, "device": {...}}``.
 
 The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18 and 20-22
 (and 24, which reuses 7-9's and 20-22's) runs in subprocesses and threads
@@ -204,6 +219,7 @@ A host without a CUDA device fails at once and prints no result.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -216,7 +232,7 @@ import time
 import numpy as np
 import torch
 
-from seqalign_torch import cli
+from seqalign_torch import cli, pretty
 from seqalign_torch.io import parse_score_matrix_file
 from seqalign_torch.native import bindings
 from seqalign_torch.native.build import ensure_built
@@ -276,15 +292,11 @@ K3_AFFINE_DIRS_OPS_PER_CELL = K3_AFFINE_OPS_PER_CELL + 6 + 4
 # Affine K4, per move: as affine K2's walk.
 K4_AFFINE_OPS_PER_MOVE = K2_AFFINE_OPS_PER_MOVE
 
-# K5, per cell of the function (global): the cell is 6 (the diagonal's
-# add, top, their max, the left-gap chain's add of g j and its max, the
-# cell less g j); the direction 8 (left, gap_best, two compares, two
-# selects, the shift and the or into the word).  csrc/strip.cu's pass 1
-# recomputes top, the diagonal and the chain only to reduce each thread's
-# run for the block scan: a cost of that design, not of the function, so
-# it is left out of the bound.
-K5_SCORE_OPS_PER_CELL = 6
-K5_OPS_PER_CELL = K5_SCORE_OPS_PER_CELL + 8
+# K5, per cell: the same recurrence as K1, and the substitution's table
+# index, as in K3: H (4) and the index (1); with words, the 2-bit
+# direction (6) besides.
+K5_SCORE_OPS_PER_CELL = K1_SCORE_OPS_PER_CELL + 1
+K5_OPS_PER_CELL = K5_SCORE_OPS_PER_CELL + 6
 
 DNA = ("data/dna/dna_01.txt", "data/dna/dna_02.txt")
 NC_034972 = ("data/dna/NC_034972.1.txt", "data/dna/mutated_NC_034972.1.txt")
@@ -328,6 +340,11 @@ STRIP_BIG = [["--global", *SINGLE_REGION], ["--local", *SINGLE_REGION],
 # the plain comparison (it steps once a row).
 STRIP_WIDTHS = (1024, 32768, 49152, 65536)
 STRIP_PLAIN_ROWS = 256
+# K5 regions of many bands (phase 16): rows, columns; m and n fall
+# inside a band and a block.
+STRIP_BAND_REGIONS = ((2048, 4096),)
+# K5's interior full-width block runs on at least this many SMs.
+K5_MIN_SMS = 64
 # Main-path K5 launches held whole against the plain version on their own
 # inputs, (rows, width, row_base, strip_off, local, with_dirs): phase
 # 17's single region of SINGLE_REGION in both modes; phase 18's interior
@@ -508,6 +525,123 @@ def max_abs_err(got, want):
     return err
 
 
+# Device time of every launch made on behalf of a user entry point, by
+# phase and kernel row (install_ledger): the launch closures a module's
+# kernel_launch returns to a call under the CLI's engine, BatchAligner,
+# the tiled score fill or the checkpoint engine are timed between CUDA
+# events.  chip_smoke's own comparisons and timings call the wrappers or
+# kernel_launch directly and are left out.  (phase, row, start, stop)
+# each; PHASE[0] is the phase running (begin_phase).
+LEDGER = []
+PHASE = [""]
+# The phases that run each workload of PERF.md's cells once through its
+# user entry point: the full-width -g (5), the batch score and alignment
+# workloads (8, 9; affine 21, 22; int16 cells, "24 width"), the long
+# pair (12), both pairs affine (15), the strip engine's full-width -g in
+# both walk modes and the long pair's tiled_fill_score (18).  The other
+# phases run correctness mixes (4, 7, 11, 14, 17, 20, "24 mixes"), some
+# of them more than once.
+WORKLOAD_PHASES = ("5", "8", "9", "12", "15", "18", "21", "22", "24 width")
+ENTRY_POINTS = (
+    (os.path.join("seqalign_torch", "api.py"), None),
+    (os.path.join("seqalign_torch", "parallel", "batch.py"), None),
+    (os.path.join("seqalign_torch", "ops", "tiled.py"), "tiled_fill_score"),
+    (os.path.join("seqalign_torch", "ops", "checkpoint.py"),
+     "checkpointed_align"),
+)
+
+
+def begin_phase(label):
+    """Tag the ledger's launches from here on with phase ``label``;
+    returns the host clock."""
+    PHASE[0] = label
+    return time.time()
+
+
+def on_main_path():
+    frame = sys._getframe(2)
+    while frame is not None:
+        code = frame.f_code
+        for path, name in ENTRY_POINTS:
+            if code.co_filename.endswith(path) and name in (None,
+                                                            code.co_name):
+                return True
+        frame = frame.f_back
+    return False
+
+
+def ledger_row(kernel, a):
+    """The kernels line's row of a launch, from kernel_launch's (or K4's
+    _launcher's) bound arguments ``a``."""
+    if kernel == "K1":
+        kind = ("-ckpt" if a["ckpt_every"] else
+                "-tile" if a["left_in"] is not None else "")
+        return "K1" + ("-affine" if a["affine"] else "") + kind
+    if kernel == "K2":
+        return "K2-affine" if a["words2"] is not None else "K2"
+    if kernel == "K3":
+        return ("K3" + ("-cell16" if a["cell16"] else "")
+                + ("-affine" if a["gap_extend"] is not None else "")
+                + ("-dirs" if a["with_dirs"] else "-score"))
+    if kernel == "K4":
+        return "K4-affine" if a["dirs2"] is not None else "K4"
+    return kernel
+
+
+def install_ledger():
+    """Wrap each kernel module's launch builder for the rest of the run
+    (chip_smoke's other wrappers stack on top and restore it)."""
+    for kernel, module, name in (
+            ("K1", wavefront, "kernel_launch"), ("K2", walk, "kernel_launch"),
+            ("K3", batch_fill, "kernel_launch"),
+            ("K4", batch_traceback, "_launcher"),
+            ("K5", strip_fill, "kernel_launch")):
+        real = getattr(module, name)
+        sig = inspect.signature(real)
+
+        def wrapped(*args, _real=real, _sig=sig, _kernel=kernel, **kwargs):
+            launch, out = _real(*args, **kwargs)
+            if not on_main_path():
+                return launch, out
+            bound = _sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            row = ledger_row(_kernel, bound.arguments)
+
+            def timed_launch(_launch=launch):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _launch()
+                stop.record()
+                LEDGER.append((PHASE[0], row, start, stop))
+
+            timed_launch.__dict__.update(launch.__dict__)
+            return timed_launch, out
+
+        setattr(module, name, wrapped)
+
+
+def ledger_sums(phases=None):
+    """{row: {"launches", "ms", "max_ms", "phases": {phase: [launches,
+    ms, max_ms]}}} over LEDGER's launches in ``phases`` (None: all)."""
+    torch.cuda.synchronize()
+    sums = {}
+    for phase, row, start, stop in LEDGER:
+        if phases is not None and phase not in phases:
+            continue
+        ms = start.elapsed_time(stop)
+        s = sums.setdefault(row, {"launches": 0, "ms": 0.0, "max_ms": 0.0,
+                                  "phases": {}})
+        s["launches"] += 1
+        s["ms"] += ms
+        s["max_ms"] = max(s["max_ms"], ms)
+        p = s["phases"].setdefault(phase, [0, 0.0, 0.0])
+        p[0] += 1
+        p[1] += ms
+        p[2] = max(p[2], ms)
+    return sums
+
+
 def cuda_ms(fn, *args, **kwargs):
     """(result, milliseconds) of one call, between CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -538,10 +672,10 @@ def ptxas_summary(path):
             label = (f"<rps {args[1]}, lanes/slot {args[2]}, steps/iteration "
                      f"{args[3]}, track {args[4]}, dirs {args[5]}, "
                      f"affine {args[6]}>")
-        elif args := re.search(r"strip_fill_kernelILi(\d+)ELb(\d)ELb(\d)E",
-                               name):
-            label = (f"<cols/thread {args[1]}, local {args[2]}, "
-                     f"dirs {args[3]}>")
+        elif args := re.search(r"strip_band_kernelILi(\d+)ELi(\d+)ELb(\d)"
+                               r"ELb(\d)E", name):
+            label = (f"<rows/lane {args[1]}, columns/iteration {args[2]}, "
+                     f"local {args[3]}, dirs {args[4]}>")
         elif args := re.search(r"walk_skewed_kernelILb(\d)E", name):
             label = f"<affine {args[1]}>"
         elif args := re.search(r"interpair(?:16)?_kernelILi(\d)ELb(\d)ELb"
@@ -557,7 +691,7 @@ def ptxas_summary(path):
             label = ""
         kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel|"
                            r"interpair16_kernel|interpair_kernel|"
-                           r"batch_walk_kernel|strip_fill_kernel|"
+                           r"batch_walk_kernel|strip_band_kernel|"
                            r"chase_shared|chase_global)", name)
         lines.append(f"  {kernel[1] if kernel else name}{label}: {regs} "
                      f"registers, stack {stack} B, spill stores {st} B, "
@@ -601,7 +735,7 @@ def repeat_launches(what, want, text_steps, bottom_in, pattern_slots,
         err = max_abs_err(out, want)
         check(err == 0, f"{what}: run {r + 1} of {times} of one launch "
                         f"closure: max_abs_err {err}")
-    sms = len(set(wavefront.launch_sms(launch)))
+    sms = len(set(_build.launch_sms(launch)))
     ctas = launch.ctas
     if slots == 4096:
         check(ctas > 1 and sms > 100, f"{what}: {ctas} CTAs on {sms} SMs")
@@ -2666,7 +2800,72 @@ def phase_strip_kernel(device="cuda"):
                             f"{'words' if with_dirs else 'score':5s}: exact, "
                             f"state {want[3].tolist()}, plain "
                             f"{plain_ms:.0f} ms")
+    # Regions of many bands: m and n inside a band and a block.
+    for rows, w in STRIP_BAND_REGIONS:
+        for mode in ("global", "local"):
+            local = mode == "local"
+            gap, n, m = 5, w - 37, rows - 45
+            text = rng.integers(0, 4, n).astype(np.int32)
+            pat = np.zeros(rows, np.int32)
+            pat[:m] = rng.integers(0, 4, m)
+            full = (*strip_tensors(device, strip_fill.strip_letters(text, 0, w),
+                                   score_matrix(4), pat),
+                    gap, n, m, 0, 0, *strip_tensors(
+                        device, strip_fill.nw_boundary_col(0, rows, gap, local),
+                        strip_fill.init_prev_row(w, 0, gap, local),
+                        strip_fill.zeros_state()))
+            for with_dirs in (True, False):
+                bands = rows // (32 * strip_fill.rows_per_lane(with_dirs))
+                check(bands >= 16, f"K5 {rows} x {w}: {bands} bands")
+                got = strip_fill.strip_fill(*full, local=local,
+                                            with_dirs=with_dirs)
+                torch.cuda.synchronize()
+                want, plain_ms = timed(strip_fill.strip_fill_plain, *full,
+                                       local=local, with_dirs=with_dirs)
+                e = max_abs_err(got, want)
+                check(e == 0, f"K5 {mode} {rows} x {w} words {with_dirs}: "
+                              f"max_abs_err {e}")
+                err = max(err, e)
+                log(f"K5 {mode:6s} k= 4 {rows} x {w} ({bands} bands, n {n}, "
+                    f"m {m}) {'words' if with_dirs else 'score':5s}: exact, "
+                    f"state {want[3].tolist()}, plain {plain_ms:.0f} ms")
+                if with_dirs != local:
+                    repeat_strip_launches(
+                        f"K5 {mode} {rows} x {w} "
+                        f"{'words' if with_dirs else 'score-only'}",
+                        want, full, local, with_dirs)
     return err
+
+
+def repeat_strip_launches(what, want, full, local, with_dirs,
+                          times=REPEATS):
+    """K5's launch closure run ``times`` times on the same inputs (the
+    arguments of ``strip_fill``), each run bitwise equal to ``want`` (the
+    plain version's outputs).  Before each run the outputs are poisoned,
+    and before each run after the first the values of the bands' streams
+    (not their tags) too: a run that read a stale stream entry, a ticket
+    or a candidate left from the run before would differ."""
+    launch, out = strip_fill.kernel_launch(*full, local, with_dirs)
+    streams = launch.scratch[strip_fill.SCRATCH_COUNTERS // 2:]
+    for r in range(times):
+        for x in out:
+            if x is not None:
+                x.fill_(-12345)
+        if r:
+            streams.bitwise_xor_(0x5A5A5)
+        launch()
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f"{what}: run {r + 1} of {times} of one launch "
+                        f"closure: max_abs_err {err}")
+    sms = len(set(_build.launch_sms(launch)))
+    STRIP_REPEATED.append((what, launch.ctas, sms))
+    log(f"{what}: {times} runs of one launch closure, each exact; "
+        f"{launch.ctas} CTAs on {sms} SMs")
+
+
+# K5's repeat-launch checks (phase 16): (what, CTAs, SMs).
+STRIP_REPEATED = []
 
 
 def strip_launches():
@@ -2772,7 +2971,7 @@ def phase_strip_main_path(main_outputs, affine_outputs, big_outputs):
     device walk), never K1; the semi-global and affine requests through
     K1, never K5.  Then the single region of SINGLE_REGION, whole, against
     the plain version.  Returns (the launches of the phase, max_abs_err
-    of that comparison)."""
+    of that comparison, the global single region's K5 arguments)."""
     strip_cases = [(argv, out) for (_, argv), out in zip(MAIN_PATH,
                                                          main_outputs)
                    if "--semi-global" not in argv]
@@ -2826,9 +3025,11 @@ def phase_strip_main_path(main_outputs, affine_outputs, big_outputs):
             log(f"-g {' '.join(argv)} with SEQALIGN_PAIR_ENGINE=strip: "
                 f"launches {delta} (the direct route), byte-identical to -c")
     counts = strip_launches()
+    single_args = [x.clone() if torch.is_tensor(x) else x
+                   for x in held[HELD_SINGLE[0]][0]]
     err = max(hold_region("single region of -g", key, held)[0]
               for key in HELD_SINGLE)
-    return counts, err
+    return counts, err, single_args
 
 
 @contextlib.contextmanager
@@ -2877,21 +3078,50 @@ def host_timed(module, name, store):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def staging_timed(wait_s, copy_s):
+    """Within the block, each placing of a staged block of words into the
+    tiled fill's host array (``tiled._Staging.flush``) is split on the
+    host clock into the wait for its device-to-host copy (appended to
+    ``wait_s``) and the copy into the host array (``copy_s``), seconds."""
+    real = tiled._Staging.flush
+
+    def flush(self):
+        if self.pending is not None:
+            t0 = time.perf_counter()
+            self.pending[2].synchronize()
+            t1 = time.perf_counter()
+            real(self)
+            wait_s.append(t1 - t0)
+            copy_s.append(time.perf_counter() - t1)
+
+    tiled._Staging.flush = flush
+    try:
+        yield
+    finally:
+        tiled._Staging.flush = real
+
+
 def events_ms(store):
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in store]
 
 
-def phase_strip_full_width(fw_out, oracle_score, long_score,
+def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
                            device="cuda"):
     """Phase 18: -g with the strip engine on the full-width pair (the
     tiled fill, 9 strips x 6 blocks) in both traceback modes, byte-
     identical to phase 5's output, its score the oracle's; the wall split
-    into K5, the walk and the rest; then ``tiled_fill_score`` of the long
-    pair against phase 12's oracle score.  Last, whole blocks of these
-    runs against the plain version on their own inputs (an interior block
-    and the last one of the full-width run, an interior block of the long
-    pair), and the interior block's K5 launch alone and its words' D2H."""
+    into K5 (device time, under the host's copies), the host's waits for
+    each block's D2H and its copies into the host array, the walk (K4 in
+    device mode), the print and the rest; then ``tiled_fill_score`` of
+    the long pair against phase 12's oracle score.  Last, whole blocks of
+    these runs against the plain version on their own inputs (an interior
+    block and the last one of the full-width run, an interior block of
+    the long pair), the K5 launches alone of the interior block (its CTAs
+    and SMs), the long pair's block and phase 17's single region
+    (``single_args``), each beside its bound, and the interior block's
+    words' D2H."""
     request = read_request(["-g", *FULL_WIDTH])
     n, m, k = len(request.text), len(request.pattern), request.alphabet_size
     check(strip_route_is_tiled(n, m), "full width: not the tiled route")
@@ -2902,6 +3132,7 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
     with plain_versions_forbidden(STRIP_PLAIN):
         for tb in ("host", "device"):
             k5_events, k4_events, walk_s = [], [], []
+            wait_s, copy_s, print_s = [], [], []
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_strip_launches()
@@ -2915,6 +3146,8 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
                     captured_regions(keep, held), \
                     event_timed(strip_fill, "kernel_launch", k5_events), \
                     event_timed(batch_traceback, "_launcher", k4_events), \
+                    staging_timed(wait_s, copy_s), \
+                    host_timed(pretty, "pretty_alignment_print", print_s), \
                     walker:
                 t0 = time.time()
                 rc, out = run_cli(["-g", *FULL_WIDTH])
@@ -2932,12 +3165,18 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
             want = {"K1": 0, "K5": blocks, "K4": 1 if tb == "device" else 0}
             check(counts == want, f"strip full width {tb}: launches "
                                   f"{counts}, expected {want}")
-            rest = wall - sum(k5_ms) / 1e3 - sum(k4_ms) / 1e3 - sum(walk_s)
+            # Each block's K5 runs under the host's copy of the block
+            # before it, so the rest leaves K5 in: the host clock's steps
+            # not split out, and the first block's K5.
+            rest = (wall - sum(wait_s) - sum(copy_s) - sum(print_s)
+                    - sum(walk_s) - sum(k4_ms) / 1e3)
             result[tb] = {
                 "wall_s": wall, "k5_s": sum(k5_ms) / 1e3,
                 "k5_launch_ms": [min(k5_ms), max(k5_ms)],
                 "walk_s": sum(walk_s), "k4_ms": sum(k4_ms),
-                "rest_s": rest, "peak_bytes": peak, "counts": counts}
+                "stage_wait_s": sum(wait_s), "host_copy_s": sum(copy_s),
+                "print_s": sum(print_s), "rest_s": rest, "peak_bytes": peak,
+                "counts": counts}
             log(f"strip full width {m} x {n}, {tb} walk: -g wall {wall:.2f} "
                 f"s, Score {score} == oracle score-only fill, output "
                 f"byte-identical to the direct route's; K5 {len(k5_ms)} "
@@ -2947,7 +3186,10 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
                    if tb == "host" else
                    f"K4 {sum(k4_ms):.3f} ms, native emit "
                    f"{sum(walk_s):.3f} s")
-                + f", the rest {rest:.3f} s; launches {counts}; "
+                + f"; words into the host array: {len(copy_s)} waits for "
+                f"their D2H {sum(wait_s):.3f} s, copies {sum(copy_s):.3f} s;"
+                f" the print {sum(print_s):.3f} s; the rest {rest:.3f} s; "
+                f"launches {counts}; "
                 f"max_memory_allocated {peak} B")
 
     # The long pair, score only: 7 strips x 13 blocks of 16,384 rows.
@@ -2977,17 +3219,28 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
         f"oracle score-only fill, {wall_ms / 1e3:.2f} s, {counts['K5']} K5 "
         f"launches")
 
-    # The interior block of the full-width run: its K5 launch alone, and
-    # its words' D2H into pageable and into pinned memory.
+    # The interior block of the full-width run: its K5 launch alone, where
+    # its CTAs ran, and its words' D2H into pageable and into pinned
+    # memory; the long pair's block and phase 17's single region alone.
     args, (words, *_) = held[HELD_FULL_INTERIOR]
     launch, _ = strip_fill.kernel_launch(*args)
     _, k5_ms = cuda_ms_best(launch)
+    k5_ctas, k5_sms = launch.ctas, len(set(_build.launch_sms(launch)))
+    check(k5_sms >= K5_MIN_SMS, f"K5 interior block: {k5_ctas} CTAs on "
+                                f"{k5_sms} SMs, fewer than {K5_MIN_SMS}")
+    del launch
+    launch, _ = strip_fill.kernel_launch(*held[HELD_LONG][0])
+    _, k5_long_ms = cuda_ms_best(launch)
+    del launch
+    launch, _ = strip_fill.kernel_launch(*single_args)
+    _, k5_single_ms = cuda_ms_best(launch)
+    del launch
     timed(words.cpu)  # the first copy pays for pages the second reuses
     _, d2h_ms = timed(words.cpu)
     pinned = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
     pinned.copy_(words)
     _, d2h_pinned_ms = timed(pinned.copy_, words)
-    del launch, words, pinned
+    del words, pinned
     # Whole blocks of the main path against the plain version.
     err, plain_ms = hold_region("interior block of the full-width -g",
                                 HELD_FULL_INTERIOR, held)
@@ -2997,26 +3250,49 @@ def phase_strip_full_width(fw_out, oracle_score, long_score,
                                           "pair's tiled_fill_score",
                                           HELD_LONG, held)
     rows, w, row_base, strip_off = HELD_FULL_INTERIOR[:4]
-    cells = rows * w
-    nbytes = (w + 4 * (2 * rows + 1) + 4 * w + 4 * k * k + 16     # inputs
-              + cells // 4 + 4 * w + 4 * rows + 16)               # outputs
     shape = (f"{rows} x {w} with words, global (the full-width run's "
              f"block at rows {row_base + 1}-{row_base + rows}, columns "
              f"{strip_off + 1}-{strip_off + w})")
-    result["K5"] = bound(nbytes, cells * K5_OPS_PER_CELL) | {
+    long_bound = k5_bound(*HELD_LONG[:2], k, False)
+    single_bound = k5_bound(*HELD_SINGLE[0][:2], k, True)
+    result["K5"] = k5_bound(rows, w, k, True) | {
         "ms": k5_ms, "plain_ms": plain_ms,
         "err": max(err, err_last, err_long), "shape": shape,
         "plain_shape": shape}
     result.update(d2h_block_ms=d2h_ms, d2h_pinned_ms=d2h_pinned_ms,
-                  plain_last_ms=plain_last_ms, plain_long_ms=plain_long_ms)
-    log(f"strip full width: K5 {k5_ms:.2f} ms for the {shape} (launch "
-        f"alone, CUDA events, best of 3); its words' D2H {d2h_ms:.2f} ms "
+                  plain_last_ms=plain_last_ms, plain_long_ms=plain_long_ms,
+                  k5_long_ms=k5_long_ms, k5_single_ms=k5_single_ms,
+                  k5_long_bound_ms=long_bound["bound_ms"],
+                  k5_single_bound_ms=single_bound["bound_ms"],
+                  k5_ctas=k5_ctas, k5_sms=k5_sms)
+    log(f"strip full width: K5 {k5_ms:.3f} ms for the {shape} (launch "
+        f"alone, CUDA events, best of 3; {k5_ctas} CTAs on {k5_sms} SMs); "
+        f"K5 {k5_long_ms:.3f} ms for the long pair's {HELD_LONG[0]} x "
+        f"{HELD_LONG[1]} score-only block (bound "
+        f"{long_bound['bound_ms']:.4f} ms, {long_bound['bound_by']}), "
+        f"{k5_single_ms:.3f} ms for phase 17's {HELD_SINGLE[0][0]} x "
+        f"{HELD_SINGLE[0][1]} single region with words (bound "
+        f"{single_bound['bound_ms']:.4f} ms, {single_bound['bound_by']}); "
+        f"its words' D2H {d2h_ms:.2f} ms "
         f"pageable, {d2h_pinned_ms:.2f} ms pinned ({rows // 4 * w} B); "
         f"plain K5 {plain_ms:.0f} ms on the same block, "
         f"{plain_last_ms:.0f} ms on the last block, {plain_long_ms:.0f} ms "
-        f"on the long pair's, all exact; bound {result['K5']['bound_ms']:.3f}"
+        f"on the long pair's, all exact; bound {result['K5']['bound_ms']:.4f}"
         f" ms ({result['K5']['bound_by']})")
     return result
+
+
+def k5_bound(rows, w, k, with_dirs):
+    """``bound`` of one K5 launch of rows x w cells: each input read once
+    (the letters, the pattern, the left column, the row above, the
+    matrix, the state), each output written once (the words, the last
+    row, the right column, the state)."""
+    cells = rows * w
+    nbytes = (w + 4 * (2 * rows + 1) + 4 * w + 4 * k * k + 16     # inputs
+              + (cells // 4 if with_dirs else 0)                  # outputs
+              + 4 * w + 4 * rows + 16)
+    ops = cells * (K5_OPS_PER_CELL if with_dirs else K5_SCORE_OPS_PER_CELL)
+    return bound(nbytes, ops)
 
 
 def bound(nbytes, ops, packed=False):
@@ -3047,6 +3323,7 @@ def run(procs):
     oracle_lib = in_thread(ensure_built)
     kernels = _build.build_all()
     oracle_lib()
+    install_ledger()
     # The longest host work first: the oracle's score-only fill of the
     # long pair for phase 12 (ctypes releases the GIL).
     long_pair = read_request(LONG_PAIR)
@@ -3078,6 +3355,12 @@ def run(procs):
     spilled = [line for line in k1_lines if "spill stores 0 B" not in line]
     check(k1_lines and not spilled, f"K1 spills: {spilled or 'no lines'}")
     log(f"K1: {len(k1_lines)} instances, none spills")
+    # K5 too.
+    k5_lines = [line for line in ptxas_summary(kernels["strip"])
+                if "strip_band_kernel" in line]
+    spilled = [line for line in k5_lines if "spill stores 0 B" not in line]
+    check(k5_lines and not spilled, f"K5 spills: {spilled or 'no lines'}")
+    log(f"K5: {len(k5_lines)} instances, none spills")
 
     # Host work beside the device phases: the oracle's outputs for
     # phase 4, a fresh-process -g run, and the score-only fill for
@@ -3123,12 +3406,12 @@ def run(procs):
     aff_cases = affine_ckpt_cases()
     aff_expected = in_thread(affine_ckpt_oracle, aff_cases)
 
-    t0 = time.time()
+    t0 = begin_phase("2-3")
     k1_err, k2_err = phase_kernels()
     log(f"phases 2-3 (K1, K2 against their plain versions): "
         f"{time.time() - t0:.1f} s")
 
-    t0 = time.time()
+    t0 = begin_phase("4")
     by_route = phase_main_path(oracle_outputs)
     rc_m, out_m, err_m = module_g()
     check(rc_m == 0 and out_m == oracle_outputs[0]()[1],
@@ -3138,89 +3421,92 @@ def run(procs):
     log(f"phase 4 (main path): {time.time() - t0:.1f} s, launches by "
         f"route {json.dumps(by_route)}")
 
-    t0 = time.time()
+    t0 = begin_phase("5")
     fw = phase_full_width(oracle_score)
     log(f"phase 5 (full width): {time.time() - t0:.1f} s")
 
-    t0 = time.time()
+    t0 = begin_phase("6")
     batch_errs = phase_batch_kernels()
     log(f"phase 6 (K3, K4 against their plain versions): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("7")
     batch_counts = phase_batch_main_path(cases, batch_expected)
     log(f"phase 7 (batch main path): {time.time() - t0:.1f} s, launches "
         f"{json.dumps(batch_counts)}")
-    t0 = time.time()
+    t0 = begin_phase("8")
     sw = phase_score_width(score_data, oracle_scores)
     log(f"phase 8 (full width, scores): {time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("9")
     aw = phase_align_width(align_data, oracle_aligned)
     log(f"phase 9 (full width, alignments): {time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("10")
     ck_k1_err, ck_k2_err = phase_ckpt_kernels()
     log(f"phase 10 (K1's checkpoint variants against their plain "
         f"versions): {time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("11")
     ck_counts = phase_ckpt_main_path(ck_cases, ck_expected)
     log(f"phase 11 (checkpoint engine, small tiles): "
         f"{time.time() - t0:.1f} s, launches {json.dumps(ck_counts)}")
-    t0 = time.time()
+    t0 = begin_phase("12")
     lp = phase_long_pair(long_score)
     log(f"phase 12 (checkpoint engine, full width): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("13")
     aff_errs, aff_plain = phase_affine_kernels()
     log(f"phase 13 (affine K1, K2 against their plain versions): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("14")
     aff_direct, aff_ck = phase_affine_main_path(affine_outputs, aff_cases,
                                                 aff_expected)
     log(f"phase 14 (affine main path): {time.time() - t0:.1f} s, launches "
         f"direct {json.dumps(aff_direct)}, checkpoint engine "
         f"{json.dumps(aff_ck)}")
-    t0 = time.time()
+    t0 = begin_phase("15")
     af = phase_affine_full_width(affine_scores["direct"],
                                  affine_scores["long"])
     log(f"phase 15 (affine, full width): {time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("16")
     k5_err = phase_strip_kernel()
     log(f"phase 16 (K5 against its plain version): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
-    strip_counts, k5_single_err = phase_strip_main_path(
+    t0 = begin_phase("17")
+    strip_counts, k5_single_err, single_args = phase_strip_main_path(
         oracle_outputs, affine_outputs, strip_outputs)
     log(f"phase 17 (the strip engine through -g): {time.time() - t0:.1f} s, "
         f"launches {json.dumps(strip_counts)}")
-    t0 = time.time()
-    sf = phase_strip_full_width(fw["out"], oracle_score, long_score)
+    t0 = begin_phase("18")
+    sf = phase_strip_full_width(fw["out"], oracle_score, long_score,
+                                single_args)
+    del single_args
     log(f"phase 18 (the strip engine, full width): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("19")
     aff_batch_errs = phase_batch_kernels(affine=True)
     log(f"phase 19 (affine K3, K4 against their plain versions): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("20")
     aff_batch_counts = phase_batch_main_path(cases, affine_expected,
                                              costs=BATCH_AFFINE)
     log(f"phase 20 (affine batch main path): {time.time() - t0:.1f} s, "
         f"launches {json.dumps(aff_batch_counts)}")
-    t0 = time.time()
+    t0 = begin_phase("21")
     asw = phase_score_width(score_data, oracle_scores_affine,
                             costs=BATCH_AFFINE, linear=sw)
     log(f"phase 21 (affine, full width, scores): {time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("22")
     aaw = phase_align_width(align_data, oracle_aligned_affine,
                             costs=BATCH_AFFINE, linear=aw)
     log(f"phase 22 (affine, full width, alignments): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("23")
     c16_errs = phase_cell16_kernels()
     log(f"phase 23 (K3-cell16 against its plain version and the int32 K3): "
         f"{time.time() - t0:.1f} s")
-    t0 = time.time()
+    t0 = begin_phase("24 mixes")
     c16_counts = phase_cell16_main_path(cases, batch_expected)
     c16_aff_counts = phase_cell16_main_path(cases, affine_expected,
                                             costs=BATCH_AFFINE)
+    begin_phase("24 width")
     c16_sw = phase_score_width(score_data, oracle_scores, int32=sw)
     c16_aw = phase_align_width(align_data, oracle_aligned, int32=aw)
     c16_asw = phase_score_width(score_data, oracle_scores_affine,
@@ -3230,12 +3516,12 @@ def run(procs):
     log(f"phase 24 (the int16 batch path): {time.time() - t0:.1f} s, "
         f"launches {json.dumps(c16_counts)}, affine "
         f"{json.dumps(c16_aff_counts)}")
-    t0 = time.time()
+    t0 = begin_phase("25")
     p2_row, p2_fails = phase_dpx16()
     log(f"phase 25 (P2, packed int16 operations): {time.time() - t0:.1f} s"
         + (f"; not exact: {', '.join(p2_fails)}" if p2_fails else ""))
     check(not p2_fails, f"P2: {p2_fails} differ from their plain versions")
-    t0 = time.time()
+    t0 = begin_phase("26")
     p1_row = phase_chase()
     log(f"phase 26 (P1, the dependent chain of loads): "
         f"{time.time() - t0:.1f} s")
@@ -3412,7 +3698,14 @@ def run(procs):
         "d2h_pinned_ms": sf["d2h_pinned_ms"], "blocks": sf["blocks"],
         "plain_last_ms": sf["plain_last_ms"],
         "plain_long_ms": sf["plain_long_ms"],
-        "long_score_wall_s": sf["long_score_wall_s"]}}))
+        "long_score_wall_s": sf["long_score_wall_s"],
+        "k5_interior_ms": sf["K5"]["ms"], "k5_interior_ctas": sf["k5_ctas"],
+        "k5_interior_sms": sf["k5_sms"],
+        "k5_interior_bound_ms": sf["K5"]["bound_ms"],
+        "k5_long_ms": sf["k5_long_ms"],
+        "k5_long_bound_ms": sf["k5_long_bound_ms"],
+        "k5_single_ms": sf["k5_single_ms"],
+        "k5_single_bound_ms": sf["k5_single_bound_ms"]}}))
     log(json.dumps({"batch": {
         "score_wall_ms": sw["wall_ms"], "score_gcups_wall": sw["gcups_wall"],
         "score_gcups_kernel": sw["gcups_kernel"],
@@ -3438,6 +3731,25 @@ def run(procs):
     log(json.dumps({"k1_repeats": [
         {"what": what, "runs": REPEATS, "ctas": ctas, "sms": sms}
         for what, ctas, sms in REPEATED]}))
+    check(len(STRIP_REPEATED) == 2, f"K5 repeat checks: {STRIP_REPEATED}")
+    log(json.dumps({"k5_repeats": [
+        {"what": what, "runs": REPEATS, "ctas": ctas, "sms": sms}
+        for what, ctas, sms in STRIP_REPEATED]}))
+    # Each row's device time on the main path, every launch's own, by
+    # phase; then over one run of each workload (WORKLOAD_PHASES), the
+    # rows in order of their longest launch.
+    ledger = ledger_sums()
+    workload = ledger_sums(WORKLOAD_PHASES)
+    for entry in summary:
+        kid = entry["name"].split()[0]
+        entry["main_path_ms"] = ledger.get(kid, {}).get("ms")
+        entry["workload_ms"] = workload.get(kid, {}).get("ms")
+    log(json.dumps({"launch_ledger": ledger}))
+    log(json.dumps({"workload_ledger": [
+        {"row": row, "launches": w["launches"], "ms": w["ms"],
+         "max_ms": w["max_ms"], "phases": w["phases"]}
+        for row, w in sorted(workload.items(),
+                             key=lambda x: -x[1]["max_ms"])]}))
     log(f"total: {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -33,8 +33,8 @@ def traceback_mode() -> str:
 def pair_engine() -> str:
     """Single-pair engine of linear-gap global and local requests:
     ``"wavefront"`` (the default: the wavefront route, the direct route
-    or the checkpoint engine by size), ``"strip"`` (the prefix-max strip
-    fill, K5, over one region or ``ops/tiled.py``) or ``"checkpoint"``
+    or the checkpoint engine by size), ``"strip"`` (the strip fill, K5,
+    over one region or ``ops/tiled.py``) or ``"checkpoint"``
     (the checkpoint engine for every size).  ``SEQALIGN_PAIR_ENGINE``
     overrides, as in the JAX package."""
     forced = os.environ.get("SEQALIGN_PAIR_ENGINE", "").lower()

@@ -84,7 +84,8 @@
 // lane 0 needs that value at step t+1 (band 0 reads bottom_in[t] at step
 // t, and at step 0 a band reads the upper slot's boundary value).  The
 // consumer warp loads 32 stream words at once (relaxed loads at GPU
-// scope, which read L2, never a stale L1 line), and uses the prefix whose
+// scope, which read L2, never a stale L1 line; band_stream.cuh's helpers,
+// which K5 shares), and uses the prefix whose
 // tags match; when its block's entries are not all there yet it sleeps
 // and reloads.  A 64-bit aligned access is single-copy atomic, so a
 // matching tag carries its value: no fence, no counter and no wait on the
@@ -117,9 +118,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "band_stream.cuh"
 #include "launch_error.cuh"
 
 namespace {
+
+using namespace band_stream;
 
 constexpr int32_t kNegInf = -(1 << 30);
 constexpr int32_t kNegHalf = kNegInf / 2;  // affine E/F "minus infinity"
@@ -140,9 +144,6 @@ constexpr int kCounterWords = 4096;
 constexpr int kSmOffset = 1024;
 constexpr int kBandStart = 2048;
 constexpr int kBandEnd = 3072;
-// Reloads of a stream window before a waiting band gives up (each one a
-// load from L2 and a 64 ns sleep: tens of seconds).
-constexpr int kMaxSpins = 1 << 24;
 
 // The shape of a launch, by rps and variant: the lanes a slot's rows are
 // split over (split_of) and the steps a lane runs an iteration (block_of).
@@ -162,33 +163,6 @@ __host__ __device__ constexpr int split_of(int rps, bool dirs, bool affine) {
 
 __host__ __device__ constexpr int block_of(int rps, bool dirs, bool affine) {
   return affine && (rps >= 16 || (rps >= 8 && !dirs)) ? 2 : 4;
-}
-
-__device__ __forceinline__ void store_tagged(unsigned long long* p,
-                                             int32_t value, int tag) {
-  const unsigned long long word =
-      (static_cast<unsigned long long>(static_cast<uint32_t>(tag)) << 32) |
-      static_cast<uint32_t>(value);
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(word));
-}
-
-__device__ __forceinline__ unsigned long long load_tagged(
-    const unsigned long long* p) {
-  unsigned long long word;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(word) : "l"(p));
-  return word;
-}
-
-__device__ __forceinline__ uint32_t clock_ns() {
-  uint64_t ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  return static_cast<uint32_t>(ns);
-}
-
-__device__ __forceinline__ int sm_id() {
-  int id;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
-  return id;
 }
 
 template <int RPS, int SPLIT, int SB, bool TRACK, bool DIRS, bool AFFINE>

@@ -9,7 +9,8 @@ of a kernel builds it, and ``build_all`` builds them all at once (one
 kernel's registers, shared memory and spills to ``<library>.log``.
 Every source includes ``csrc/launch_error.cuh``, so every library
 exports ``sa_error_text``, which ``check_launch`` reads to name a failed
-launch's CUDA error.
+launch's CUDA error; K1 and K5 include ``csrc/band_stream.cuh``, their
+bands' shared stream helpers.
 """
 
 from __future__ import annotations
@@ -20,12 +21,15 @@ import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 from ..native.build import build_shared
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 KERNELS = ("wavefront", "walk", "interpair", "interpair16", "batch_walk",
            "strip", "probe_dpx16", "probe_chase")
-HEADERS = (os.path.join(CSRC, "launch_error.cuh"),)
+HEADERS = tuple(os.path.join(CSRC, name)
+                for name in ("launch_error.cuh", "band_stream.cuh"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -67,6 +71,33 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _loaded[name] = lib
         return lib
+
+
+def c_function(lib: ctypes.CDLL, name: str, argtypes, restype=ctypes.c_int):
+    """``lib``'s C function ``name``, its ctypes ``argtypes`` and
+    ``restype`` set on first use."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return fn
+
+
+def int_function(lib: ctypes.CDLL, name: str, nargs: int,
+                 restype=ctypes.c_int):
+    """``lib``'s C function ``name`` of ``nargs`` int arguments returning
+    ``restype``."""
+    return c_function(lib, name, [ctypes.c_int] * nargs, restype)
+
+
+def launch_sms(launch) -> list[int]:
+    """The SM each CTA of a band kernel's ``launch`` (K1's or K5's launch
+    closure) ran on in its latest run, after the run has finished: the SM
+    log in its scratch, SM + 1 by ticket from int32 ``launch.sm_log``, one
+    entry for each of its ``launch.ctas`` CTAs."""
+    log = launch.scratch.view(torch.int32)[
+        launch.sm_log:launch.sm_log + launch.ctas]
+    return [int(x) - 1 for x in log.cpu()]
 
 
 def check_launch(name: str, rc: int) -> None:

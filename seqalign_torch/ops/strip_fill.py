@@ -23,7 +23,10 @@ The TPU kernel reads a (K, 8, L) profile; the port's kernel reads the
 strip's text letters and the (k, k) matrix and scores columns past n with
 PAD_SCORE itself (``strip_letters`` is the profile's role).  For tensors
 on a CUDA device ``strip_fill`` launches the CUDA kernel
-(``csrc/strip.cu``); for tensors on the CPU it runs ``strip_fill_plain``.
+(``csrc/strip.cu``: the region as a chain of one-warp bands over the
+whole card, handing their last rows on through streams in a scratch
+buffer the wrapper owns); for tensors on the CPU it runs
+``strip_fill_plain``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from . import layout
-from ._build import check_launch, library
+from ._build import c_function, check_launch, int_function, library
 
 NEG_INF = -(1 << 30)
 PAD_SCORE = -(1 << 24)
@@ -163,24 +166,52 @@ def strip_fill(text, score_matrix, pattern, gap, n: int, m: int,
 strip_fill.launches = 0
 
 
-def _kernel():
-    fn = library("strip").sa_strip_fill
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p] + [i] * 8 + [p, p, p, i] + [p] * 5
-        fn.restype = ctypes.c_int
-    return fn
+# K5's scratch (csrc/strip.cu): SCRATCH_COUNTERS int32 (the ticket, the
+# CTAs done, S[m, n], the stream windows loaded at LOADS and found empty
+# at MISSES; from SM_LOG each CTA's SM + 1, from BAND_START / BAND_END
+# each band's first and last iteration in ns, then each band's local
+# candidate), then the bands' tagged streams.
+SCRATCH_COUNTERS = 4096
+LOADS = 4
+MISSES = 5
+SM_LOG = 512
+BAND_START = 1024
+BAND_END = 1536
+WARP = 32
+
+
+def rows_per_lane(with_dirs: bool) -> int:
+    """Rows a lane of K5 owns in the variant with words or score-only (a
+    band is 32 of them)."""
+    return int_function(library("strip"), "sa_strip_rows_per_lane", 1)(
+        int(with_dirs))
 
 
 def kernel_launch(text, score_matrix, pattern, gap, n, m, row_base,
                   strip_off, left_col, prev_row, state, local: bool,
                   with_dirs: bool):
     """K5 on the inputs' CUDA device, ready to launch: the letters as int8
-    and the outputs allocated.  Returns (launch, (words, prev_out,
-    right_col, state_out)); each ``launch()`` runs the kernel once on the
-    current stream (a second run writes the same outputs), raising if the
-    launch failed, and counts nothing (``strip_fill`` counts its
-    launches)."""
+    and the outputs and the scratch allocated.  Returns (launch, (words,
+    prev_out, right_col, state_out)); each ``launch()`` runs the kernel
+    once on the current stream (a second run writes the same outputs),
+    raising if the launch failed, and counts nothing (``strip_fill``
+    counts its launches).  ``launch.scratch`` is the launch's scratch (the
+    bands' streams and counters), re-zeroed by every ``launch()``;
+    ``_build.launch_sms(launch)`` reads where its CTAs ran."""
+    return shape_launch(library("strip"), None, text, score_matrix, pattern,
+                        gap, n, m, row_base, strip_off, left_col, prev_row,
+                        state, local, with_dirs)
+
+
+def shape_launch(lib, shape, text, score_matrix, pattern, gap, n, m,
+                 row_base, strip_off, left_col, prev_row, state, local: bool,
+                 with_dirs: bool):
+    """``kernel_launch`` through ``lib``, a build of ``csrc/strip.cu``:
+    ``shape`` None calls ``sa_strip_fill`` at the variant's own shape;
+    ``shape`` = (rows a lane, columns an iteration) calls the all-shapes
+    build's ``sa_strip_fill_shape`` at it."""
+    rpl = (int_function(lib, "sa_strip_rows_per_lane", 1)(int(with_dirs))
+           if shape is None else shape[0])
     device = text.device
     w, rows = text.shape[0], pattern.shape[0]
     i32 = torch.int32
@@ -193,21 +224,36 @@ def kernel_launch(text, score_matrix, pattern, gap, n, m, row_base,
     prev_out = torch.empty(w, dtype=i32, device=device)
     rcol = torch.empty(rows, dtype=i32, device=device)
     state_out = torch.empty(4, dtype=i32, device=device)
+    # The bands' streams, the ticket and the counters (csrc/strip.cu's
+    # head note); the C entry point zeroes them on the stream before every
+    # launch.
+    nbytes = int_function(lib, "sa_strip_scratch_bytes", 3,
+                          ctypes.c_longlong)(w, rows, rpl)
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = c_function(lib, "sa_strip_fill" if shape is None
+                    else "sa_strip_fill_shape",
+                    [p, p, p] + [i] * 8 + [p, p, p, i] + [p] * 4
+                    + [i, i] * (shape is not None) + [p, p])
+    tail = () if shape is None else tuple(shape)
 
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel()(
+            rc = fn(
                 text8.data_ptr(), pattern.data_ptr(), sm.data_ptr(),
                 sm.shape[0], int(gap), int(n), int(m), int(row_base),
                 int(strip_off), w, rows, left_col.data_ptr(),
                 prev_row.data_ptr(), state.data_ptr(), int(local),
                 None if words is None else words.data_ptr(),
                 state_out.data_ptr(), prev_out.data_ptr(), rcol.data_ptr(),
-                stream,
+                *tail, scratch.data_ptr(), stream,
             )
         check_launch("strip", rc)
 
+    launch.scratch = scratch
+    launch.sm_log = SM_LOG
+    launch.ctas = rows // (WARP * rpl)
     return launch, (words, prev_out, rcol, state_out)
 
 

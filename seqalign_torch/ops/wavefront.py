@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import layout
-from ._build import check_launch, library
+from ._build import c_function, check_launch, int_function, library
 
 SLOTS = 1024           # slots of the wavefront route's strips
 ROWS_PER_SLOT = 8      # rows per slot of the wavefront route
@@ -199,9 +199,10 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
     once on the current stream, raising if the launch failed, and counts
     nothing (the wrapper counts its launches).  ``launch.scratch`` is the
     launch's scratch (the bands' streams), re-zeroed by every
-    ``launch()``; ``launch_sms(launch)`` reads where its CTAs ran."""
+    ``launch()``; ``_build.launch_sms(launch)`` reads where its CTAs ran."""
     lib = library("wavefront")
-    shape = tuple(_c(lib, name, 3)(rps, int(affine), int(ckpt_every))
+    shape = tuple(int_function(lib, name, 3)(rps, int(affine),
+                                             int(ckpt_every))
                   for name in ("sa_wavefront_split", "sa_wavefront_block"))
     return split_launch(lib, None, shape, text_steps, bottom_in,
                         pattern_slots, score_matrix, gap, n, m, i0, k_alpha,
@@ -242,10 +243,12 @@ def split_launch(lib, entry, shape, text_steps, bottom_in, pattern_slots,
     # The bands' streams, the ticket and the CTAs' SM log (csrc/
     # wavefront.cu's head note); the C entry point zeroes them on the
     # stream before every launch.
-    nbytes = _c(lib, "sa_wavefront_scratch_bytes", 4,
-                ctypes.c_longlong)(steps, slots, split, int(affine))
+    nbytes = int_function(lib, "sa_wavefront_scratch_bytes", 4,
+                          ctypes.c_longlong)(steps, slots, split, int(affine))
     scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=device)
-    fn = _entry(lib, entry or "sa_wavefront_strip", entry is not None)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = c_function(lib, entry or "sa_wavefront_strip",
+                    [p] * 16 + [i] * (15 if entry else 13) + [p, p])
     tail = tuple(shape) if entry else ()
 
     def ptr(x):
@@ -267,35 +270,12 @@ def split_launch(lib, entry, shape, text_steps, bottom_in, pattern_slots,
         check_launch("wavefront", rc)
 
     launch.scratch = scratch
+    launch.sm_log = SM_LOG
     launch.ctas = slots // 32
     out = (dirs, bottom_out, rowmax, argj, snap, ckpts)
     if affine:
         out += (dirs2, fbot_out, ckpts_e)
     return launch, out
-
-
-def launch_sms(launch) -> list[int]:
-    """The SM each CTA of ``launch``'s latest run ran on (the SM log of
-    its scratch, by ticket), after the run has finished."""
-    log = launch.scratch.view(torch.int32)[SM_LOG:SM_LOG + launch.ctas]
-    return [int(x) - 1 for x in log.cpu()]
-
-
-def _c(lib, name, nargs, restype=ctypes.c_int):
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * nargs
-        fn.restype = restype
-    return fn
-
-
-def _entry(lib, name, with_split):
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 16 + [i] * (15 if with_split else 13) + [p, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def make_left_input(lc_full, rps: int, slots: int):

@@ -1,6 +1,7 @@
 """Dev probes of the card, each runnable as ``python -m
 seqalign_torch.probes.<name>`` on a host with a CUDA device: the Hopper
-counterparts of the JAX package's Pallas probes, and K1's shapes.
+counterparts of the JAX package's Pallas probes, and K1's and K5's
+shapes.
 
 * ``dpx16`` (P2, ``csrc/probe_dpx16.cu``): which packed int16 formulations
   of the int16 cell mode's operations are exact, and their rates;
@@ -8,5 +9,7 @@ counterparts of the JAX package's Pallas probes, and K1's shapes.
   chain of loads from shared memory, L2 and HBM;
 * ``wavefront_shapes`` (K1, ``csrc/wavefront.cu``): K1 at every shape
   (lanes a slot, steps a lane's iteration), exact and timed, and K1's own
-  trace.
+  trace;
+* ``strip_shapes`` (K5, ``csrc/strip.cu``): K5 at every shape (rows a
+  lane, columns a lane's iteration), exact and timed, and K5's own trace.
 """

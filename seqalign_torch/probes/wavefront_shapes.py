@@ -27,17 +27,16 @@ CUDA device or when a shape differs.
 
 from __future__ import annotations
 
-import ctypes
-import os
 import sys
 
 import numpy as np
 import torch
 
-from ..io import parse_score_matrix_file
-from ..native.build import build_shared
 from ..ops import _build, layout
 from ..ops import wavefront as wf
+from ._shapes import (all_shapes_library, band_clocks, best_ms, same,
+                      score_matrix)
+from ._shapes import main as probe_main
 
 SPLITS = (1, 2, 4)
 BLOCKS = (1, 2, 4)
@@ -76,21 +75,8 @@ CKPT_COLS = 32_768
 
 
 def library():
-    """The all-shapes build of ``csrc/wavefront.cu`` (built once, cached
-    by digest like the kernels)."""
-    source = os.path.join(_build.CSRC, "wavefront.cu")
-    return ctypes.CDLL(build_shared(
-        "seqalign_wavefront_shapes", source,
-        lambda out: [_build.nvcc(), _build.ARCH, "-std=c++17", "-O3",
-                     "-DSA_WAVEFRONT_ALL_SHAPES", "-Xptxas", "-v", "-shared",
-                     "-Xcompiler", "-fPIC", "-o", out, source],
-        _build.HEADERS))
-
-
-def score_matrix():
-    sm = np.zeros((4, 4), dtype=np.int32)
-    assert parse_score_matrix_file("scoreMatrices/dna/blast.txt", 4, sm) == 0
-    return sm
+    """The all-shapes build of ``csrc/wavefront.cu``."""
+    return all_shapes_library("wavefront", "SA_WAVEFRONT_ALL_SHAPES")
 
 
 def strip(rng, rps, slots, n, m, variant, affine, mode, device):
@@ -149,11 +135,6 @@ def launcher(lib, shape, args, kw):
         kw.get("ext", 0), kw.get("fbot_in"), kw.get("left_e"))
 
 
-def same(a, b):
-    return all((x is None and y is None) or torch.equal(x, y)
-               for x, y in zip(a, b))
-
-
 def check(lib) -> bool:
     ok = True
     rng = np.random.default_rng(8)
@@ -188,19 +169,8 @@ def time_shapes(lib) -> bool:
         first, times = None, {}
         for shape in shapes(rps):
             launch, out = launcher(lib, shape, args, kw)
-            launch()  # warm
-            torch.cuda.synchronize()
-            best = None
-            for _ in range(2):
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                launch()
-                stop.record()
-                torch.cuda.synchronize()
-                ms = start.elapsed_time(stop)
-                best = ms if best is None else min(best, ms)
-            sms = len(set(wf.launch_sms(launch)))
+            best = best_ms(launch)
+            sms = len(set(_build.launch_sms(launch)))
             if first is None:
                 first, good = out, True
             else:
@@ -235,26 +205,14 @@ def trace_shapes():
             kw["ckpt_every"], slots, kw["semi"], kw.get("left_in"),
             affine=affine, ext=kw.get("ext", 0), fbot_in=kw.get("fbot_in"),
             left_e=kw.get("left_e"))
-        launch()  # warm
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch()
-        stop.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(stop)
-        c = launch.scratch.view(torch.int32)[:wf.SCRATCH_COUNTERS].cpu()
-        c = c.numpy().astype(np.int64)
+        ms = best_ms(launch, reps=1)
         split, block = in_code(rps, affine, kw["ckpt_every"])
         bands = slots * split // 32
         steps = ts.numel()
         iters = steps // block + (
             (32 // split - 1) * (split - 1) + split - 1 if block == 1 else 31)
-        first = c[wf.BAND_START:wf.BAND_START + bands]
-        last = c[wf.BAND_END:wf.BAND_END + bands]
-        # Differences of the clocks' low 32 bits, as signed numbers.
-        run = (last - first + (1 << 31)) % (1 << 32) - (1 << 31)
-        lag = (last - last[0] + (1 << 31)) % (1 << 32) - (1 << 31)
+        c, run, lag, _ = band_clocks(launch, wf.SCRATCH_COUNTERS,
+                                     wf.BAND_START, wf.BAND_END, bands)
         print(f"K1_TRACE {name} (rps {rps} x {slots}, {steps} steps, split "
               f"{split}, block {block}, {bands} bands): {ms:.3f} ms; a band "
               f"{run.min() / 1e6:.3f}-{run.max() / 1e6:.3f} ms, "
@@ -276,23 +234,8 @@ def in_code(rps, affine, ckpt_every):
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if not torch.cuda.is_available():
-        print("wavefront_shapes: no CUDA device", file=sys.stderr)
-        return 1
-    ok = True
-    if "--trace" in argv:
-        trace_shapes()
-    if argv and "--check" not in argv and "--time" not in argv:
-        print(f"device: {torch.cuda.get_device_name(0)}")
-        return 0
-    lib = library()
-    if "--check" in argv or not argv:
-        ok &= check(lib)
-    if "--time" in argv or not argv:
-        ok &= time_shapes(lib)
-    print(f"device: {torch.cuda.get_device_name(0)}")
-    return 0 if ok else 1
+    return probe_main(argv, "wavefront_shapes", library, check, time_shapes,
+                      trace_shapes)
 
 
 if __name__ == "__main__":
