@@ -12,8 +12,11 @@ without its last line:
    K3 ``csrc/interpair.cu``, K3-cell16 ``csrc/interpair16.cu``, K4
    ``csrc/batch_walk.cu``, K5 ``csrc/strip.cu``, the probes P2
    ``csrc/probe_dpx16.cu`` and P1 ``csrc/probe_chase.cu``) and the native
-   oracle from the sources, all at once, and print the build time and
-   ptxas's lines; fail if any K1 instance spills.
+   oracle from the sources, all at once (and K2's all-shapes build of
+   ``probes/walk_shapes.py`` beside them), and print the build time and
+   ptxas's lines; fail if any K1, K5 or K2 instance spills, or if K2's
+   window shapes (``sa_walk_window_slots``/``_groups``) differ from
+   ``ops/walk.window_shape``'s.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
@@ -24,7 +27,11 @@ without its last line:
    128 CTAs must run on more than 100 SMs (``repeat_launches``; phases 10
    and 13 do the same for the other five variants).
 3. K2 against its plain version on the words of phase 2, also with a
-   move buffer shorter than the path.  Exact.
+   move buffer shorter than the path; then ``walk_shapes``' check at the
+   least window (8 slots x 2 groups, so that each walk crosses dozens of
+   windows), its linear cases at rps 1-16: global, local, semi-global,
+   tiles, a buffer's end, all-LEFT, all-TOP, all-DIAG and zig-zag paths.
+   Exact.
 4. The single-pair main path: the ``-g`` command line (``cli.main``, the
    body of ``python -m seqalign_torch``) in this process on the bundled
    pairs, each compared byte for byte with ``python -m seqalign_torch -c``
@@ -37,7 +44,9 @@ without its last line:
    through ``-g``.  Its score must equal the oracle's O(n)-memory
    score-only fill, and rescoring the printed alignment must give it too.
    Then each kernel's launch alone is timed at this shape with CUDA
-   events; K2 is held against its plain version there, K1 at a smaller
+   events; K2 is held against its plain version there, and its launch
+   closure runs 5 times with its moves and result poisoned before each,
+   each run exact; K1 at a smaller
    depth (the text's first PLAIN_DEPTH letters) and on a late window:
    the last whole WINDOW_COLS columns, re-filled from a column
    checkpoint of the score-only fill by K1 and by its plain version,
@@ -102,7 +111,8 @@ without its last line:
     128); every output (words, run bits, both streams, trackers, the H
     and E checkpoints), and K2 on each set of words from gap states 0, 1
     and 2 and with a buffer of 64 moves (in a local tile from the best
-    cell of its bottom row).  Exact.
+    cell of its bottom row); then ``walk_shapes``' check at the least
+    window, its affine cases.  Exact.
 14. The affine main path: ``-g --gap-extend`` (``cli.main``) in this
     process on NC_018874 x mutated (three modes) and on P08519 x P10635
     (protein, local), each byte-identical to ``python -m seqalign_torch
@@ -207,7 +217,9 @@ without its last line:
     ``workload_ledger`` line (the same over WORKLOAD_PHASES, one run of
     each workload, the rows in order of their longest launch), a JSON
     line of the kernels (each with its sums as ``main_path_ms`` and
-    ``workload_ms``), the card's name and power limit from nvidia-smi,
+    ``workload_ms``; K2's rows also with a path tile's time and the chain
+    floor, the moves times P1's shared-memory step of this run), the
+    card's name and power limit from nvidia-smi,
     and ``{"ok": true, "device": {...}}``.
 
 The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18 and 20-22
@@ -240,7 +252,7 @@ from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
                                 checkpoint, direct, layout, strip_fill, tiled,
                                 walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
-from seqalign_torch.probes import dpx16, walk_costs
+from seqalign_torch.probes import dpx16, walk_costs, walk_shapes
 from seqalign_torch.types import Request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -676,8 +688,10 @@ def ptxas_summary(path):
                                r"ELb(\d)E", name):
             label = (f"<rows/lane {args[1]}, columns/iteration {args[2]}, "
                      f"local {args[3]}, dirs {args[4]}>")
-        elif args := re.search(r"walk_skewed_kernelILb(\d)E", name):
-            label = f"<affine {args[1]}>"
+        elif args := re.search(r"walk_window_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                               r"ELb(\d)ELb(\d)E", name):
+            label = (f"<rps {args[1]}, window {args[2]} slots x {args[3]} "
+                     f"groups, affine {args[4]}, local {args[5]}>")
         elif args := re.search(r"interpair(?:16)?_kernelILi(\d)ELb(\d)ELb"
                                r"(\d)E", name):
             label = (f"<mode {args[1]}, dirs {args[2]}, "
@@ -689,7 +703,7 @@ def ptxas_summary(path):
             continue
         else:
             label = ""
-        kernel = re.search(r"(wavefront_strip_kernel|walk_skewed_kernel|"
+        kernel = re.search(r"(wavefront_strip_kernel|walk_window_kernel|"
                            r"interpair16_kernel|interpair_kernel|"
                            r"batch_walk_kernel|strip_band_kernel|"
                            r"chase_shared|chase_global)", name)
@@ -845,6 +859,38 @@ def phase_kernels(device="cuda", n=4000,
     return k1_err, k2_err
 
 
+def walk_window_check(lib, affine):
+    """Phases 3 and 13: ``walk_shapes --check`` at the least window (8
+    slots x 2 groups, so that each walk crosses dozens of windows), the
+    linear or the affine cases, each exact against the plain walk."""
+    rows = walk_shapes.check_walks(lib, smallest_only=True, affine=affine)
+    bad = [row for row in rows if not row[-1]]
+    check(rows and not bad, f"K2 at the least window differs: {bad}")
+    log(f"K2 at the least window ({walk_shapes.SMALLEST[0]} slots x "
+        f"{walk_shapes.SMALLEST[1]} groups, the probe's build): "
+        f"{len(rows)} {'affine' if affine else 'linear'} walks at rps "
+        f"{', '.join(map(str, walk.WINDOW_SHAPES))}, "
+        f"{sum(row[3] for row in rows)} moves, each exact")
+
+
+def repeat_walks(what, launch, out, want, times=REPEATS):
+    """K2's launch closure run ``times`` times on the same words, its
+    moves and result poisoned before each run, each run bitwise equal to
+    the plain walk ``want`` (moves up to its count)."""
+    mv, res = out
+    used = -(-int(want[1][0]) // 16)
+    for r in range(times):
+        mv.fill_(-12345)
+        res.fill_(-12345)
+        launch()
+        torch.cuda.synchronize()
+        err = max_abs_err([res, mv[:used]], [want[1], want[0][:used]])
+        check(err == 0, f"{what}: run {r + 1} of {times} of one launch "
+                        f"closure: max_abs_err {err}")
+    log(f"{what}: {times} runs of one launch closure, moves and result "
+        f"poisoned before each, each exact")
+
+
 def phase_main_path(oracle_outputs):
     """Phase 4: ``-g`` in process against the ``-c`` subprocess outputs;
     returns the launches per route."""
@@ -995,9 +1041,9 @@ def phase_full_width(oracle_score):
                                              False, None)
     _, k1_ms = cuda_ms(launch)
     max_moves = -(-(n + m + 1) // 16) * 16
-    launch, (mv, res) = walk.kernel_launch(k1_out[0], rps, 0, 0, m, n, False,
-                                           max_moves)
-    _, k2_ms = cuda_ms(launch)
+    k2_launch, (mv, res) = walk.kernel_launch(k1_out[0], rps, 0, 0, m, n,
+                                              False, max_moves)
+    _, k2_ms = cuda_ms(k2_launch)
     moves = int(res[0])
     log(f"full width: K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms "
         f"({moves} moves), each launch alone, CUDA events")
@@ -1027,6 +1073,7 @@ def phase_full_width(oracle_score):
     used = -(-moves // 16)
     k2_err = max_abs_err([res, mv[:used]], [res_p, mv_p[:used]])
     check(k2_err == 0, f"full width: K2 max_abs_err {k2_err}")
+    repeat_walks("full width: K2", k2_launch, (mv, res), (mv_p, res_p))
     plain_shape = (f"{m} x {PLAIN_DEPTH} (the text's first {PLAIN_DEPTH} "
                    f"letters), rps {rps}, slots {slots}, global")
     log(f"full width: plain K1 {k1_plain_ms:.1f} ms at a smaller depth, "
@@ -1054,7 +1101,8 @@ def phase_full_width(oracle_score):
             "ms": k1_ms, "plain_ms": k1_plain_ms, "err": k1_err,
             "plain_shape": plain_shape},
         "K2": bound(k2_bytes, k2_ops) | {
-            "ms": k2_ms, "plain_ms": k2_plain_ms, "err": k2_err},
+            "ms": k2_ms, "plain_ms": k2_plain_ms, "err": k2_err,
+            "moves": moves},
     }
 
 
@@ -1871,7 +1919,8 @@ def phase_chase():
     row = bound(first["bytes"] + 4, 6 * first["steps"]) | {
         "ms": first["ms"], "plain_ms": first["plain_ms"], "err": 0,
         "launches": walk_costs.chase.launches,
-        "shape": f"{first['steps']} steps over a {first['name']} table"}
+        "shape": f"{first['steps']} steps over a {first['name']} table",
+        "shared_ns_per_step": first["ns_per_step"]}
     log(json.dumps({"chase": [{key: r[key] for key in (
         "name", "bytes", "steps", "ms", "ns_per_step", "plain_ms")}
         for r in results]}))
@@ -2202,7 +2251,8 @@ def phase_long_pair(oracle_score, device="cuda"):
         "phase2_s": seen["phase2_s"], "strips": strips,
         "tiles": tiles_crossed, "peak_bytes": peak, "counts": counts,
         "tile_host_ms": host_ms, "readback_ms": readback_ms,
-        "phase2_rest_ms": phase2_rest_ms,
+        "phase2_rest_ms": phase2_rest_ms, "k2_tile_ms": walk_ms,
+        "k2_tile_moves": wres[0],
         "K1-ckpt": bound(strip_bytes(steps, rps, slots, k,
                                      ck.colvals[1].shape[0]),
                          real_cells * K1_SCORE_OPS_PER_CELL) | {
@@ -2698,9 +2748,10 @@ def phase_affine_full_width(direct_score, long_score, device="cuda"):
                                 f"words, global"}
     result["K2-affine"] = bound(k2_bytes, direct_moves
                                 * K2_AFFINE_OPS_PER_MOVE) | {
-        "ms": k2_ms, "shape": f"{direct_moves} moves at full width "
-                              f"(tile: {walk_ms:.3f} ms for {wres[0]} "
-                              f"moves)"}
+        "ms": k2_ms, "moves": direct_moves, "tile_ms": walk_ms,
+        "tile_moves": wres[0],
+        "shape": f"{direct_moves} moves at full width (tile: {walk_ms:.3f} "
+                 f"ms for {wres[0]} moves)"}
     return result
 
 
@@ -3321,6 +3372,7 @@ def run(procs):
     t_start = time.time()
     # 1. Build: one nvcc per kernel source and g++ for the oracle, at once.
     oracle_lib = in_thread(ensure_built)
+    walk_lib = in_thread(walk_shapes.library)
     kernels = _build.build_all()
     oracle_lib()
     install_ledger()
@@ -3361,6 +3413,26 @@ def run(procs):
     spilled = [line for line in k5_lines if "spill stores 0 B" not in line]
     check(k5_lines and not spilled, f"K5 spills: {spilled or 'no lines'}")
     log(f"K5: {len(k5_lines)} instances, none spills")
+    # K2's move loop keeps its state in registers too; its window shape in
+    # code is the one ops/walk.py names.
+    k2_lines = [line for line in ptxas_summary(kernels["walk"])
+                if "walk_window_kernel" in line]
+    spilled = [line for line in k2_lines if "spill stores 0 B" not in line]
+    check(k2_lines and not spilled, f"K2 spills: {spilled or 'no lines'}")
+    shapes = {(rps, affine): walk.library_window_shape(
+        _build.library("walk"), rps, affine)
+        for rps in walk.WINDOW_SHAPES for affine in (False, True)}
+    check(all(shape == walk.window_shape(*key)
+              for key, shape in shapes.items()),
+          f"K2's window shapes {shapes} differ from ops/walk.py's")
+    log(f"K2: {len(k2_lines)} instances, none spills; windows (slots, "
+        f"groups) by rps, linear/affine, as ops/walk.py names them: "
+        + ", ".join(f"{rps}: {shapes[rps, False]}/{shapes[rps, True]}"
+                    for rps in walk.WINDOW_SHAPES))
+    t1 = time.time()
+    walk_lib = walk_lib()
+    log(f"K2's all-shapes build (probes/walk_shapes.py): ready "
+        f"{time.time() - t1:.1f} s after the kernels")
 
     # Host work beside the device phases: the oracle's outputs for
     # phase 4, a fresh-process -g run, and the score-only fill for
@@ -3408,6 +3480,7 @@ def run(procs):
 
     t0 = begin_phase("2-3")
     k1_err, k2_err = phase_kernels()
+    walk_window_check(walk_lib, affine=False)
     log(f"phases 2-3 (K1, K2 against their plain versions): "
         f"{time.time() - t0:.1f} s")
 
@@ -3453,6 +3526,7 @@ def run(procs):
         f"{time.time() - t0:.1f} s")
     t0 = begin_phase("13")
     aff_errs, aff_plain = phase_affine_kernels()
+    walk_window_check(walk_lib, affine=True)
     log(f"phase 13 (affine K1, K2 against their plain versions): "
         f"{time.time() - t0:.1f} s")
     t0 = begin_phase("14")
@@ -3546,6 +3620,10 @@ def run(procs):
         "K1-affine-ckpt": aff_ck["K1"] + af["long_counts"]["K1"] - aff_tiles,
         "K1-affine-tile": aff_tiles,
     })
+    # K2's chain floor: its moves, each one dependent load from shared
+    # memory at P1's cost in this run (the 32 KiB table).
+    chain_ns = p1_row["shared_ns_per_step"]
+    fw["K2"].update(tile_ms=lp["k2_tile_ms"], tile_moves=lp["k2_tile_moves"])
     summary = []
     for name, kid, replaces, row, err in (
         ("K1 wavefront_strip", "K1", "seqalign_tpu/ops/wavefront.py:71",
@@ -3586,6 +3664,22 @@ def run(procs):
             "library_ms": None, "shape": row["shape"],
             "plain_shape": row.get("plain_shape", row["shape"]),
         })
+        if kid.startswith("K2"):
+            summary[-1].update(
+                moves=row["moves"], tile_ms=row["tile_ms"],
+                tile_moves=row["tile_moves"],
+                chain_ns_per_move=chain_ns,
+                chain_floor_ms=row["moves"] * chain_ns / 1e6,
+                tile_chain_floor_ms=row["tile_moves"] * chain_ns / 1e6)
+            log(f"{kid}: {row['ms']:.3f} ms for {row['moves']} moves at "
+                f"full width, {row['tile_ms']:.3f} ms for "
+                f"{row['tile_moves']} in a path tile; chain floor (a "
+                f"dependent shared-memory load a move, P1 {chain_ns:.1f} "
+                f"ns): {row['moves'] * chain_ns / 1e6:.3f} and "
+                f"{row['tile_moves'] * chain_ns / 1e6:.3f} ms, "
+                f"{100 * row['moves'] * chain_ns / 1e6 / row['ms']:.0f} % "
+                f"and {100 * row['tile_moves'] * chain_ns / 1e6 / row['tile_ms']:.0f}"
+                f" % of it; bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     # The batch kernels: linear (phases 6-9; K4 also walks the strip
     # engine's single pairs, phases 17-18) and affine (phases 19-22).
     # Each wrapper counts both instances: a phase's counts are its own.

@@ -11,7 +11,9 @@ through ``state0`` and the result, from tile to tile.
 
 ``walk_skewed_window`` launches the CUDA kernel (``csrc/walk.cu``) for
 words on a CUDA device and runs ``walk_skewed_window_plain`` for words on
-the CPU.
+the CPU.  The kernel walks from windows of the words staged in shared
+memory: ``window_shape`` gives a window's slots and word groups at each
+rps, the shape the kernel fixes at compile time.
 """
 
 from __future__ import annotations
@@ -21,9 +23,25 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import check_launch, library
+from ._build import c_function, check_launch, int_function, library
 
 _LEFT, _DIAG, _TOP, _STOP = 0, 1, 2, 3
+
+# K2's window (csrc/walk.cu's window_slots, window_groups) by rps:
+# (slots, word groups) linear and affine.  A window holds all rps rows of
+# its slots, 16 sweep steps a group: 512 rows x 512 steps linear, 256 x
+# 512 affine (two planes), 128 KB of shared memory for its two buffers.
+WINDOW_SHAPES = {rps: {False: (512 // rps, 32), True: (256 // rps, 32)}
+                 for rps in (1, 2, 4, 8, 16)}
+
+
+def window_shape(rps: int, affine: bool) -> tuple[int, int]:
+    """(slots, word groups) of K2's window for words of ``rps`` rows a
+    slot, linear or affine; ValueError for an rps the kernel has no
+    window for."""
+    if rps not in WINDOW_SHAPES:
+        raise ValueError(f"K2 walks words of rps 1, 2, 4, 8 or 16, not {rps}")
+    return WINDOW_SHAPES[rps][bool(affine)]
 
 
 def _check(words, rps, row_lo, col_lo, i0, j0, max_moves, words2=None,
@@ -41,6 +59,8 @@ def _check(words, rps, row_lo, col_lo, i0, j0, max_moves, words2=None,
                          "like words, on its device")
     if state0 not in (0, 1, 2):
         raise ValueError(f"state0 must be 0, 1 or 2, got {state0}")
+    if row_lo < 0 or col_lo < 0:
+        raise ValueError("row_lo and col_lo must be >= 0")
     w_rows, srows, lanes = words.shape
     if lanes != 128 or rps < 1 or w_rows % rps:
         raise ValueError(f"words of shape {tuple(words.shape)} do not hold "
@@ -91,35 +111,58 @@ def kernel_launch(words, rps, row_lo, col_lo, i0, j0, local, max_moves,
                   words2=None, state0=0):
     """K2 on the words' CUDA device, ready to launch: the outputs
     allocated.  Returns (launch, (moves, result)); each ``launch()`` runs
-    the kernel once on the current stream, raising if the launch failed,
-    and counts nothing (the wrapper counts its launches)."""
+    the kernel once on the current stream, raising if the launch failed
+    (its shared memory refused, say), and counts nothing (the wrapper
+    counts its launches)."""
+    return shape_launch(library("walk"), None, words, rps, row_lo, col_lo,
+                        i0, j0, local, max_moves, words2, state0)
+
+
+def shape_launch(lib, shape, words, rps, row_lo, col_lo, i0, j0, local,
+                 max_moves, words2=None, state0=0, trace=None):
+    """``kernel_launch`` through ``lib``, a build of ``csrc/walk.cu``:
+    ``shape`` None calls ``sa_walk_skewed`` at the window of
+    ``window_shape``; ``shape`` = (slots, groups) calls the all-shapes
+    build's ``sa_walk_skewed_shape`` with that window and ``trace`` (None,
+    or an int64 tensor of 9 the walker fills)."""
+    window_shape(rps, words2 is not None)
+    for x in (words, words2):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError("K2 loads the words in 16-byte chunks: they "
+                             "must be 16-byte aligned")
     device = words.device
     move_words = -(-max_moves // 16)
     moves = torch.empty(max(move_words, 1), dtype=torch.int32, device=device)
     result = torch.empty(5, dtype=torch.int32, device=device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    head = [p, p] + [i] * 8 + [p, ctypes.c_int64, p]
+    if shape is None:
+        fn = c_function(lib, "sa_walk_skewed", head + [p])
+        tail = ()
+    else:
+        fn = c_function(lib, "sa_walk_skewed_shape", head + [i, i, p, p])
+        tail = (*shape, None if trace is None else trace.data_ptr())
 
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel()(
+            rc = fn(
                 words.data_ptr(),
                 None if words2 is None else words2.data_ptr(), rps,
                 words.shape[1] * 128, int(row_lo), int(col_lo), int(i0),
                 int(j0), int(state0), int(local), moves.data_ptr(),
-                move_words, result.data_ptr(), stream,
+                move_words, result.data_ptr(), *tail, stream,
             )
         check_launch("walk", rc)
 
     return launch, (moves, result)
 
 
-def _kernel():
-    fn = library("walk").sa_walk_skewed
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, p, ctypes.c_int64, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+def library_window_shape(lib, rps: int, affine: bool) -> tuple[int, int]:
+    """(slots, word groups) of the window the build ``lib`` of
+    ``csrc/walk.cu`` fixes at this rps and variant ((0, 0): none)."""
+    return tuple(int_function(lib, f"sa_walk_window_{name}", 2)(
+        rps, int(affine)) for name in ("slots", "groups"))
 
 
 def walk_skewed_window_plain(words, rps: int, row_lo: int, col_lo: int,
