@@ -14,9 +14,9 @@ without its last line:
    ``csrc/probe_dpx16.cu`` and P1 ``csrc/probe_chase.cu``) and the native
    oracle from the sources, all at once (and K2's all-shapes build of
    ``probes/walk_shapes.py`` beside them), and print the build time and
-   ptxas's lines; fail if any K1, K5 or K2 instance spills, or if K2's
-   window shapes (``sa_walk_window_slots``/``_groups``) differ from
-   ``ops/walk.window_shape``'s.
+   ptxas's lines; fail if any K1, K5, K2, K3 or K3-cell16 instance
+   spills, or if K2's window shapes (``sa_walk_window_slots``/
+   ``_groups``) differ from ``ops/walk.window_shape``'s.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
@@ -55,7 +55,12 @@ without its last line:
    versions, on the card: global, local and semi-global, DNA and protein,
    ragged lengths with padding pairs, n not a multiple of 128, tile_pairs
    128 and 256; every score, best cell, word, move word, length and
-   final cursor, K4 with the full buffer and with 64 moves.  Exact.
+   final cursor, K4 with the full buffer and with 64 moves.  Then K3 on
+   256 pairs of 2,080 rows (K3_WRAP: 130 stripes, more than a CTA's
+   warps, so the last warp hands its rows to the first through the
+   global scratch), both variants in the three modes, and each launch
+   closure 5 times with its outputs and scratch poisoned between runs
+   (``repeat_k3_launches``).  Exact.
 7. The batch main path: ``BatchAligner.score`` and ``.align`` on a
    ragged mix of random and bundled pairs with empty ones among them, in
    the three modes, DNA and protein; every score equals ``oracle_fill``'s
@@ -65,7 +70,8 @@ without its last line:
 8. Full width, scores: ``BatchAligner(local=True).score`` on bench.py's
    headline workload (8,192 DNA pairs of 512 x 512, seed 42), 512
    sampled pairs against the oracle; then K3 timed at that shape and
-   held against its plain version there.
+   held against its plain version there, printed beside the row's time
+   before the chain of warps (K3_BEFORE_MS).
 9. Full width, alignments: ``BatchAligner(local=True).align`` on the
    64k-pair workload of ``scripts/bench_batch_e2e_metric.py`` (65,536
    DNA pairs of 256 x 256, seed 9, 4 chunks), 1,024 sampled pairs
@@ -170,7 +176,8 @@ without its last line:
     ragged lengths with padding pairs, n not a multiple of 128,
     tile_pairs 128 and 256; every score, best cell, word, run-bit word,
     move word, length and final cursor, K4 with the full buffer and with
-    64 moves.  Exact.
+    64 moves; then the wrapping K3 pairs of phase 6 at open 8 extend 2,
+    with 5 poisoned runs of each launch closure.  Exact.
 20. The affine batch main path: ``BatchAligner(gap_extend=2)`` at open
     8 (phase 15's costs), ``.score`` and ``.align`` on phase 7's mix in
     the three modes, DNA and protein; every score equals
@@ -185,14 +192,17 @@ without its last line:
     phase 9's workload, 1,024 sampled pairs byte-identical to the
     oracle; then affine K3 with words and affine K4 timed on one chunk
     and held against their plain versions there.
-23. K3-cell16 (the int16 cell mode, two pairs a thread) against its
+23. K3-cell16 (the int16 cell mode, two pairs a lane) against its
     plain version and against the int32 K3, on the card: phase 6's and
     19's cases (global, local and semi-global, DNA and protein, linear
     and affine at both costs, ragged lengths with padding pairs, n not a
     multiple of 128, an odd batch score-only, tile_pairs 128 and 256) and
     the +-127 matrix at the largest shape the gate admits with gap 127.
     Every score, best cell, word and run-bit word exact, and equal to the
-    int32 K3's but the padding pairs' scores (NEG_16 for NEG_INF).
+    int32 K3's but the padding pairs' scores (NEG_16 for NEG_INF).  Then
+    the wrapping pairs of phase 6, linear at gap 5 and affine at open 5
+    extend 2 (open 8 is past the int16 gate at 2,080 rows), with 5
+    poisoned runs of each launch closure.
 24. The int16 batch path: phase 7's and 20's mixes under
     ``SEQALIGN_INT16_CELLS=1`` (refused with the JAX ValueError where the
     gate does not admit a bucket) and ``auto`` (a spy and the launch
@@ -213,7 +223,9 @@ without its last line:
     version, ns a step.
 27. A ``launch_ledger`` JSON line (each kernel row's launches and device
     ms summed over every launch made under a user entry point, timed
-    between CUDA events from phase 2 on, in all and by phase), a
+    between CUDA events from phase 2 on, in all and by phase), the
+    longest K3 launch of the ragged mixes (phases 7, 20, 24) beside its
+    time before the chain of warps, the K3 repeat checks, a
     ``workload_ledger`` line (the same over WORKLOAD_PHASES, one run of
     each workload, the rows in order of their longest launch), a JSON
     line of the kernels (each with its sums as ``main_path_ms`` and
@@ -426,6 +438,26 @@ BATCH_AFFINE = (8, 2)
 # Affine costs of phase 19 by alphabet size, (open, extend): extend below
 # open, and equal to it (the linear costs through the affine kernels).
 BATCH_AFFINE_KERNEL_COSTS = {4: ((8, 2), (5, 5)), 23: ((11, 1), (10, 10))}
+# K3 pairs whose stripes outnumber a CTA's warps (phases 6, 19, 23):
+# pairs, text columns, pattern rows (130 stripes of 16 rows, so every
+# variant's warps wrap over them: the last warp hands its rows to the
+# first through the global scratch).
+K3_WRAP = (256, 300, 2080)
+# K3's costs there (open, extend) by phase: linear, affine, and the int16
+# cells (whose gate admits open 5 at these widths, not open 8).
+K3_WRAP_COSTS = {"6": ((5, None),), "19": ((8, 2),),
+                 "23": ((5, None), (5, 2))}
+# The K3 rows' times before the chain of warps, one pair (K3-cell16: two)
+# a thread (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W): each launch
+# alone at phases 8, 9, 21, 22 and 24's shapes.
+K3_BEFORE_MS = {
+    "K3-score": 6.878, "K3-dirs": 2.062, "K3-affine-score": 13.368,
+    "K3-affine-dirs": 2.895, "K3-cell16-score": 4.927,
+    "K3-cell16-dirs": 7.806, "K3-cell16-affine-score": 5.386,
+    "K3-cell16-affine-dirs": 8.580}
+# The longest K3 launch of the ragged mixes (phases 7, 20, 24) before
+# the chain: a bundled 4,405 x 4,334 pair on one thread (PERF.md).
+K3_RAGGED_BEFORE_MS = 1023.9
 
 
 def log(*parts):
@@ -693,9 +725,9 @@ def ptxas_summary(path):
             label = (f"<rps {args[1]}, window {args[2]} slots x {args[3]} "
                      f"groups, affine {args[4]}, local {args[5]}>")
         elif args := re.search(r"interpair(?:16)?_kernelILi(\d)ELb(\d)ELb"
-                               r"(\d)E", name):
+                               r"(\d)ELi(\d+)E", name):
             label = (f"<mode {args[1]}, dirs {args[2]}, "
-                     f"affine {args[3]}>")
+                     f"affine {args[3]}, columns/block {args[4]}>")
         elif args := re.search(r"batch_walk_kernelILi(\d)ELb(\d)E", name):
             label = f"<mode {args[1]}, affine {args[2]}>"
         elif re.search(r"(apply|rate)_kernelILi\d+ELb\dE", name):
@@ -1220,6 +1252,82 @@ def affine_walk_reads(packed, lengths, dirs2, bis, bjs, tile_pairs):
     return (int(valid.sum()) - int(in_run.sum())) + int(gap_moves.sum())
 
 
+def repeat_k3_launches(what, args, kwargs, want, times=REPEATS):
+    """K3's launch closure (``batch_fill.kernel_launch(*args,
+    **kwargs)``) run ``times`` times on the same inputs, each run bitwise
+    equal to ``want`` (the plain version's outputs).  Before each run the
+    outputs and the global scratch the last warp hands to the first are
+    poisoned: a run that read a stale scratch entry, or a ring entry
+    before its warp wrote it, would differ."""
+    launch, out = batch_fill.kernel_launch(*args, **kwargs)
+    for r in range(times):
+        for x in out:
+            if x is not None:
+                x.fill_(-12345)
+        for x in launch.scratch:
+            if x is not None:
+                x.fill_(0x5A5A5 + r)
+        launch()
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f"{what}: run {r + 1} of {times} of one launch "
+                        f"closure: max_abs_err {err}")
+    K3_REPEATED.append((what, launch.ctas, launch.warps))
+
+
+# K3's repeat-launch checks (phases 6, 19, 23): (what, CTAs, warps).
+K3_REPEATED = []
+
+
+def k3_wrap_checks(rng, costs, ids, device="cuda", cell16=False):
+    """K3 (``cell16``: K3-cell16) on K3_WRAP's pairs of DNA, where the
+    stripes outnumber the warps: every output of the wrappers, score-only
+    (``ids[0]``) and with words (``ids[1]``), against the plain versions
+    in the three modes at each (open, extend) of ``costs``; then each
+    launch closure REPEATS times (``repeat_k3_launches``).  Returns {id:
+    max_abs_err}."""
+    b, n, m = K3_WRAP
+    sm_np = score_matrix(4)
+    sm = torch.from_numpy(sm_np).to(device)
+    errs = dict.fromkeys(ids, 0)
+    for gap, ext in costs:
+        check(not cell16 or batch_fill.int16_cells_ok(n, m, sm_np, 4, gap,
+                                                      ext),
+              f"K3 wrap case {gap}/{ext} outside the int16 gate")
+        for mode, kw in MODES.items():
+            texts, patterns, ns, ms = batch_case(rng, b, n, m, 4, device)
+            ms[:16] = m - 3  # pairs through the last stripe
+            for with_dirs in (False, True):
+                kid = ids[with_dirs]
+                tile = batch_fill.TILE_QUANTUM if with_dirs else None
+                what = f"{kid} {mode} {gap}/{ext}: {b} pairs {m} x {n}"
+                args = (texts, patterns, ns, ms, sm, gap, 4)
+                common = dict(gap_extend=ext, cell16=cell16, **kw)
+                if with_dirs:
+                    got = batch_fill.batch_fill_dirs(*args, tile_pairs=tile,
+                                                     **common)
+                    torch.cuda.synchronize()
+                    want = batch_fill.batch_fill_dirs_plain(
+                        *args, tile_pairs=tile, **common)
+                else:
+                    got = (batch_fill.batch_score(*args, **common),)
+                    torch.cuda.synchronize()
+                    want = (batch_fill.batch_score_plain(*args, **common),)
+                err = max_abs_err(got, want)
+                check(err == 0, f"{what}: max_abs_err {err}")
+                errs[kid] = max(errs[kid], err)
+                repeat_k3_launches(
+                    what, (*args, mode == "local", mode == "semi"),
+                    dict(tile_pairs=tile, with_dirs=with_dirs,
+                         gap_extend=ext, cell16=cell16), want)
+                _, ctas, warps = K3_REPEATED[-1]
+                log(f"{what}, {ctas} CTAs of {warps} warps (the stripes "
+                    f"wrap): every output == the plain version's; "
+                    f"{REPEATS} runs of one launch closure, outputs and "
+                    f"scratch poisoned between them, each exact")
+    return errs
+
+
 def phase_batch_kernels(device="cuda", b=512, n=300, m=208, affine=False):
     """Phase 6: K3 (both variants) and K4 against their plain versions;
     with ``affine``, phase 19: their affine instances (the run bits
@@ -1290,6 +1398,10 @@ def phase_batch_kernels(device="cuda", b=512, n=300, m=208, affine=False):
                         f"{tile}: {b} pairs {m} x {n}, scores, best cells "
                         f"and {words}; K4 exact, longest walk {moves[0]} "
                         f"moves")
+    wrap = k3_wrap_checks(rng, K3_WRAP_COSTS["19" if affine else "6"],
+                          ids[:2], device)
+    for kid, err in wrap.items():
+        errs[kid] = max(errs[kid], err)
     return errs
 
 
@@ -1496,8 +1608,10 @@ def phase_score_width(data, oracle_scores, device="cuda", costs=None,
                   f"ms, {cells / k3_32 / 1e6:.1f} GCUPS; int16 / int32 = "
                   f"{k3_ms / k3_32:.3f})")
     log(f"{what}: {kid} {k3_ms:.3f} ms (its launch alone, CUDA events, "
-        f"best of 3) = {cells / k3_ms / 1e6:.1f} GCUPS{beside}; plain "
-        f"{plain_ms:.1f} ms; exact")
+        f"best of 3) = {cells / k3_ms / 1e6:.1f} GCUPS{beside}; row {kid} "
+        f"before the chain of warps {K3_BEFORE_MS[kid]:.3f} ms, "
+        f"{K3_BEFORE_MS[kid] / k3_ms:.2f}x this; plain {plain_ms:.1f} ms; "
+        f"exact")
     nbytes = b * (n_pad + m_pad) + 3 * 4 * b   # letters, ns, ms, scores
     ops = K3_AFFINE_OPS_PER_CELL if affine else K3_OPS_PER_CELL
     return {
@@ -1633,7 +1747,9 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
                   f"{k3_32_ms:.3f} ms; int16 / int32 = "
                   f"{k3_ms / k3_32_ms:.3f})")
     log(f"{what}, one {chunk}-pair chunk: {k3} {k3_ms:.3f} ms "
-        f"({cells / k3_ms / 1e6:.1f} GCUPS){beside}, K4 {k4_ms:.3f} ms "
+        f"({cells / k3_ms / 1e6:.1f} GCUPS){beside}; row {k3} before the "
+        f"chain of warps {K3_BEFORE_MS[k3]:.3f} ms, "
+        f"{K3_BEFORE_MS[k3] / k3_ms:.2f}x this; K4 {k4_ms:.3f} ms "
         f"({moves} moves), each launch alone, CUDA events, best of 3; the "
         f"wrappers' outputs == the launches' == the plain versions' == the "
         f"aligner's scores and move counts; plain {k3} {k3_plain_ms:.1f} ms, "
@@ -1687,7 +1803,8 @@ def int16_real(got16, got32, ns, what):
 def phase_cell16_kernels(device="cuda", b=512, n=300, m=208):
     """Phase 23: K3-cell16 (score-only and with words, linear and affine)
     against its plain version and against the int32 K3, on phase 6's and
-    19's cases (an odd batch score-only), then the near-cap case."""
+    19's cases (an odd batch score-only), then the near-cap case, then
+    the wrapping pairs (``k3_wrap_checks``)."""
     rng = np.random.default_rng(2028)
     ids = ("K3-cell16-score", "K3-cell16-dirs", "K3-cell16-affine-score",
            "K3-cell16-affine-dirs")
@@ -1752,6 +1869,11 @@ def phase_cell16_kernels(device="cuda", b=512, n=300, m=208):
         log(f"{what}: {bb} pairs, scores (odd batch), best cells, words"
             f"{' and run bits' if ext is not None else ''} == the plain "
             f"version's and the int32 K3's (padding scores NEG_16)")
+    for kids, costs in ((ids[:2], K3_WRAP_COSTS["23"][:1]),
+                        (ids[2:], K3_WRAP_COSTS["23"][1:])):
+        wrap = k3_wrap_checks(rng, costs, kids, device, cell16=True)
+        for kid, err in wrap.items():
+            errs[kid] = max(errs[kid], err)
     return errs
 
 
@@ -3429,6 +3551,14 @@ def run(procs):
         f"groups) by rps, linear/affine, as ops/walk.py names them: "
         + ", ".join(f"{rps}: {shapes[rps, False]}/{shapes[rps, True]}"
                     for rps in walk.WINDOW_SHAPES))
+    # K3 and K3-cell16 keep a stripe's rows in registers too.
+    k3_lines = [line for name in ("interpair", "interpair16")
+                for line in ptxas_summary(kernels[name])
+                if "interpair" in line]
+    spilled = [line for line in k3_lines if "spill stores 0 B" not in line]
+    check(len(k3_lines) == 24 and not spilled,
+          f"K3 spills: {spilled or k3_lines or 'no lines'}")
+    log(f"K3, K3-cell16: {len(k3_lines)} instances, none spills")
     t1 = time.time()
     walk_lib = walk_lib()
     log(f"K2's all-shapes build (probes/walk_shapes.py): ready "
@@ -3839,6 +3969,20 @@ def run(procs):
         entry["main_path_ms"] = ledger.get(kid, {}).get("ms")
         entry["workload_ms"] = workload.get(kid, {}).get("ms")
     log(json.dumps({"launch_ledger": ledger}))
+    # The longest K3 launch of the ragged mixes (phases 7, 20, 24).
+    ragged = max((w["phases"][ph][2], row, ph)
+                 for row, w in ledger.items() if row.startswith("K3")
+                 for ph in ("7", "20", "24 mixes") if ph in w["phases"])
+    log(f"longest K3 launch of the ragged mixes: {ragged[0]:.3f} ms "
+        f"({ragged[1]}, phase {ragged[2]}; before the chain of warps "
+        f"{K3_RAGGED_BEFORE_MS} ms)")
+    log(json.dumps({"k3_ragged_longest": {
+        "ms": ragged[0], "row": ragged[1], "phase": ragged[2],
+        "before_ms": K3_RAGGED_BEFORE_MS}}))
+    check(len(K3_REPEATED) == 24, f"K3 repeat checks: {K3_REPEATED}")
+    log(json.dumps({"k3_repeats": [
+        {"what": what, "runs": REPEATS, "ctas": ctas, "warps": warps}
+        for what, ctas, warps in K3_REPEATED]}))
     log(json.dumps({"workload_ledger": [
         {"row": row, "launches": w["launches"], "ms": w["ms"],
          "max_ms": w["max_ms"], "phases": w["phases"]}

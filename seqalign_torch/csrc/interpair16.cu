@@ -1,5 +1,6 @@
 // K3-cell16: the inter-pair batch fill in int16 cells, linear or affine
-// (Gotoh) gaps, two pairs per thread in the halves of 32-bit registers.
+// (Gotoh) gaps, two pairs a lane in the halves of 32-bit registers, each
+// pair's stripes of 16 rows a chain of warps.
 //
 // Replaces seqalign_tpu/ops/pallas_fill.py::_interpair_kernel with
 // cell16=True (launched by batch_score_pallas and batch_fill_dirs_pallas),
@@ -25,38 +26,62 @@
 // __vibmax_s16x2 for a max with its a >= b predicates, which give the
 // DIAG and LEFT/TOP tests and the run bits) do the H, E and F work of two
 // pairs in one instruction each.  The substitution lookup (two 16-bit
-// shared-memory reads packed with __byte_perm), the 2-bit direction codes
-// and the best-cell tracking of the words variant stay per pair.
+// shared-memory reads packed with __byte_perm) and the 2-bit direction
+// codes stay per pair; local's trackers take a column's packed maximum
+// (__vimax3_s16x2) at once, semi's and global's row m's value.
 //
-// The design: thread t owns pairs 2t (low halves) and 2t+1 (high
-// halves), so a batch of B pairs runs B/2 threads (the batch is even: the
-// wrapper pads an odd score-only batch with one padding pair).  It reads
-// both pairs' letters of a column as one 16-bit load from the
-// [column][pair] int8 layout, keeps a stripe's 16 packed H values (and
-// E, affine) in registers across the columns, and round-trips the
-// stripe's bottom row (and F) through a [column][pair-pair] uint32
-// scratch, half the int32 kernel's scratch bytes.  It writes its two
-// pairs' words of a column as one 8-byte store (the two pairs are
-// neighbouring slots of one tile).  The score-only variant keeps packed
-// trackers: per row and per column half-masks (0xFFFF where the cell is
-// tracked) select the cells, so local's best is one masked max (a masked
-// cell counts 0, which the floor at 0 makes harmless), semi's a select
-// and a max, global's a select.  It fills the cells of the longer of its
-// two pairs; the words variant fills every cell, padding included, so
-// every word matches the TPU kernel's.  Two pairs a thread halve the
-// threads: 8,192 pairs give 4,096, under one warp an SM on 132 SMs.
+// The design: the int32 K3's chain (interpair_chain.cuh): a CTA's W
+// warps split the stripes of its pairs, the stripe's bottom row handed
+// to the next warp through a ring in shared memory and from the last
+// warp to the first through a global scratch.  Lane l of a CTA owns pairs
+// 2l and 2l+1 of its 64 (low and high halves), so a warp is 64 pairs and
+// bench.py's 8,192 pairs of 512 rows run 128 CTAs of 16 warps where two
+// pairs a thread ran 4,096 threads (the batch is even: the wrapper pads
+// an odd score-only batch with one padding pair).  A lane reads both pairs' letters of a
+// column as one 16-bit load from the [column][pair] int8 layout, keeps a
+// stripe's 16 packed H values (and E, affine) in registers across the
+// columns, and hands its bottom row (and F) on as one uint32 a column:
+// the rings and the [column][pair-pair] scratch hold half the int32
+// kernel's bytes a pair.  It writes its two pairs' words of a column as
+// one 8-byte store (the two pairs are neighbouring slots of one tile), a
+// warp's 64 words 256 contiguous bytes.  The score matrix is a dense
+// k x k int16 table, as in the int32 K3.  The score-only variant keeps
+// packed trackers: local's takes each column's packed maximum, semi's and
+// global's per row and per column half-masks (0xFFFF where the cell is
+// tracked) select the cells, semi's with a max, global's alone.  It fills
+// the CTA's rows <= max m and columns < max n; the words variant fills every cell, padding
+// included, so every word matches the TPU kernel's.  Shapes as in the
+// int32 K3 (warps_of, block_of; probes/interpair_shapes.py), every
+// variant up to 16 warps, 128 registers a thread (a row's two pattern
+// letters share one).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "interpair_chain.cuh"
 #include "launch_error.cuh"
 
 namespace {
 
-constexpr int kRows = 16;  // DP rows of a stripe = rows of a direction word
+using namespace interpair_chain;
+
 constexpr int kNeg16 = -(1 << 14);
-constexpr int kMaxThreads = 256;
 constexpr int kGlobal = 0, kLocal = 1, kSemi = 2;
+constexpr int kMaxWarps = 16;
+
+// The shape in code per variant, as the int32 K3's (warps_of, block_of;
+// probes/interpair_shapes.py --time, NVIDIA H100 80GB HBM3, 700 W):
+// score-only, linear at most 16 warps x 8 columns, 0.872 ms (8 x 8:
+// 1.216), affine 16 x 4, 1.121; with words, linear 8 x 4, 1.200 (16 x 2:
+// 1.223), affine 16 x 2, 1.981 (8 x 4: 1.978).
+__host__ __device__ constexpr int warps_of(bool dirs, bool affine) {
+  return dirs && !affine ? 8 : kMaxWarps;
+}
+
+__host__ __device__ constexpr int block_of(bool dirs, bool affine) {
+  if (dirs) return affine ? 2 : 4;
+  return affine ? 4 : 8;
+}
 
 // v cut to 16 bits in both halves.
 __device__ __forceinline__ uint32_t splat(int v) {
@@ -83,31 +108,76 @@ __device__ __forceinline__ uint32_t dir_code(bool not_diag, bool is_left,
   return stop ? 3u : (not_diag ? (is_left ? 0u : 2u) : 1u);
 }
 
-// The words variant's tracker of one pair (the int32 kernel's).
+// Semi's and global's tracker of one pair over one column, the words
+// variant's: `hm` is the column's H in row m (the stripe holds row m), as
+// the int32 kernel's track_row_m.
 template <int kMode>
-__device__ __forceinline__ void track(int cur, int i, int j, int n, int m,
-                                      int& acc, int& bi, int& bj) {
-  if (kMode == kLocal) {
-    const bool ok = j < n && i <= m;
-    // Stripes visit rows out of row-major order: an equal value in an
-    // earlier row wins.
-    const bool better = ok && (cur > acc || (cur == acc && i < bi));
-    bi = better ? i : bi;
-    bj = better ? j + 1 : bj;
-    acc = ok ? max(acc, cur) : acc;
-  } else if (kMode == kSemi) {
-    const bool ok = i == m && j < n;
-    const bool better = ok && cur > acc;
-    bi = better ? i : bi;
-    bj = better ? j + 1 : bj;
-    acc = ok ? max(acc, cur) : acc;
-  } else {
-    acc = (i == m && j == n - 1) ? cur : acc;
+__device__ __forceinline__ void track_row_m(int hm, int j, int n, int m,
+                                            int& acc, int& bi, int& bj) {
+  if (kMode == kSemi) {
+    if (j < n && hm > acc) {
+      acc = hm;
+      bi = m;
+      bj = j + 1;
+    }
+  } else if (j == n - 1) {
+    acc = hm;
   }
 }
 
-template <int kMode, bool kDirs, bool kAffine>
-__global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
+// Local's trackers over one column of a stripe, both pairs at once: the
+// largest H among each pair's tracked cells (its first ok_lo / ok_hi
+// rows of the stripe, the column j < n), packed; score-only into the
+// packed tracker acc2, with words then each pair's first row holding it,
+// as the int32 kernel's track_column.  Local's H is >= 0, so -1 tracks
+// nothing.
+template <bool kDirs>
+__device__ __forceinline__ void track_column16(
+    const uint32_t (&h)[kRows], int j, int i0, int n_lo, int n_hi,
+    int ok_lo, int ok_hi, bool full_rows, uint32_t& acc2, int (&acc)[2],
+    int (&bi)[2], int (&bj)[2]) {
+  uint32_t cmax2;
+  if (full_rows) {
+    cmax2 = h[0];
+#pragma unroll
+    for (int r = 1; r + 1 < kRows; r += 2) {
+      cmax2 = __vimax3_s16x2(cmax2, h[r], h[r + 1]);
+    }
+    cmax2 = __vmaxs2(cmax2, h[kRows - 1]);
+  } else {
+    cmax2 = 0xFFFFFFFFu;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      cmax2 = __vmaxs2(cmax2, h[r] | ~halves(r < ok_lo, r < ok_hi));
+    }
+  }
+  cmax2 |= ~halves(j < n_lo && ok_lo > 0, j < n_hi && ok_hi > 0);
+  if (!kDirs) {
+    acc2 = __vmaxs2(acc2, cmax2);
+    return;
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int v = x == 0 ? lo16(cmax2) : hi16(cmax2);
+    const int ok = x == 0 ? ok_lo : ok_hi;
+    if (v < 0 || v < acc[x]) continue;
+    int first = 0;
+#pragma unroll
+    for (int r = kRows - 1; r >= 0; --r) {
+      const int hv = x == 0 ? lo16(h[r]) : hi16(h[r]);
+      first = hv == v && r < ok ? r : first;
+    }
+    const int i = i0 + first + 1;
+    if (v > acc[x] || i < bi[x]) {
+      acc[x] = v;
+      bi[x] = i;
+      bj[x] = j + 1;
+    }
+  }
+}
+
+template <int kMode, bool kDirs, bool kAffine, int kSB>
+__global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
     const int8_t* __restrict__ texts,     // (n_cols, b) letters
     const int8_t* __restrict__ patterns,  // (m_rows, b) letters
     const int32_t* __restrict__ ns, const int32_t* __restrict__ ms,
@@ -117,28 +187,43 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
     uint32_t* __restrict__ frow,  // (n_cols, b/2) scratch, affine only
     int32_t* __restrict__ scores, int32_t* __restrict__ best_is,
     int32_t* __restrict__ best_js, int32_t* __restrict__ dirs,
-    int32_t* __restrict__ dirs2) {
+    int32_t* __restrict__ dirs2, int32_t* __restrict__ trace) {
+  static_assert(kRingCols % kSB == 0 && (kSB & (kSB - 1)) == 0,
+                "a ring holds whole blocks of a power of two");
+  // The warps' rings, H then F: [plane][warp][kRingCols][lane].
+  extern __shared__ uint32_t rings16[];
   __shared__ int16_t sub[32 * 32];
+  __shared__ int progress[kMaxWarps];
+  __shared__ int sleeps[2 * kMaxWarps];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
   for (int x = threadIdx.x; x < 32 * 32; x += blockDim.x) {
-    const int a = x >> 5;
-    const int c = x & 31;
-    sub[x] = static_cast<int16_t>((a < k && c < k) ? score_matrix[a * k + c]
-                                                   : 0);
+    sub[x] = static_cast<int16_t>(x < k * k ? score_matrix[x] : 0);
+  }
+  if (threadIdx.x < 2 * warps) {
+    sleeps[threadIdx.x] = 0;
+    if (threadIdx.x < warps) progress[threadIdx.x] = 0;
   }
   __syncthreads();
   const int64_t half_b = b / 2;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= half_b) return;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarp + lane;
+  const bool real = t < half_b;
   const int64_t p = 2 * t;  // pair p in the low halves, p + 1 in the high
-  const int n_lo = min(ns[p], n_cols);
-  const int n_hi = min(ns[p + 1], n_cols);
-  const int m_lo = min(ms[p], m_rows);
-  const int m_hi = min(ms[p + 1], m_rows);
+  const int n_lo = real ? min(ns[p], n_cols) : 0;
+  const int n_hi = real ? min(ns[p + 1], n_cols) : 0;
+  const int m_lo = real ? min(ms[p], m_rows) : 0;
+  const int m_hi = real ? min(ms[p + 1], m_rows) : 0;
   const int num_w = m_rows / kRows;
   const int stripes =
-      kDirs ? num_w : (max(max(m_lo, m_hi), 0) + kRows - 1) / kRows;
-  const int cols = kDirs ? n_cols : max(max(n_lo, n_hi), 0);
+      kDirs ? num_w
+            : (static_cast<int>(__reduce_max_sync(
+                   kFull, max(max(m_lo, m_hi), 0))) +
+               kRows - 1) / kRows;
+  const int cols =
+      kDirs ? n_cols
+            : static_cast<int>(
+                  __reduce_max_sync(kFull, max(max(n_lo, n_hi), 0)));
   const int64_t tile = p / tile_pairs;
   const int64_t slot = p - tile * tile_pairs;
   const uint16_t* __restrict__ texts2 =
@@ -148,17 +233,26 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
   const uint32_t gap2 = splat(gap);
   const uint32_t ext2 = splat(ge);
   const uint32_t neg2 = splat(kNeg16);
+  Chain<kSB> chain{progress, sleeps, warp, warps, (cols + kSB - 1) / kSB};
+  const int ring_plane = warps * kRingCols * kWarp;
+  if (trace != nullptr && lane == 0) {
+    trace[(blockIdx.x * warps + warp) * kTraceWords + 2] =
+        static_cast<int32_t>(band_stream::clock_ns());
+  }
   uint32_t acc2 = neg2;  // score-only trackers, packed
-  int acc_lo = kNeg16, acc_hi = kNeg16;  // the words variant's, per pair
-  int bi_lo = 0, bj_lo = 0, bi_hi = 0, bj_hi = 0;
+  int acc[2] = {kNeg16, kNeg16};  // the words variant's, low and high pair
+  int bi[2] = {0, 0};
+  int bj[2] = {0, 0};
 
-  for (int w = 0; w < stripes; ++w) {
-    const int i0 = w * kRows;  // the DP row above the stripe
+  for (int s = warp; s < stripes; s += warps) {
+    const int i0 = s * kRows;  // the DP row above the stripe
     uint32_t h[kRows];         // H[i0+1+r, j]: the stripe's left column
     uint32_t e[kRows];         // E[i0+1+r, j] (affine)
-    int prow_lo[kRows];        // pattern letters of row i0+1+r, times 32
-    int prow_hi[kRows];
-    uint32_t rmask[kRows];     // score-only: the rows each pair tracks
+    uint32_t prow[kRows];      // the table's byte offsets of row i0+1+r's
+                               // pattern letters (times k), the two
+                               // pairs' in the halves
+    uint32_t rmask[kRows];     // semi, global score-only: the rows each
+                               // pair tracks
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int i = i0 + r + 1;
@@ -168,15 +262,21 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
       } else {
         h[r] = kMode == kLocal ? 0u : splat(-gap * i);
       }
-      const uint32_t letters =
-          i0 + r < m_rows ? patterns2[(i0 + r) * half_b + t] : 0u;
-      prow_lo[r] = (letters & 31) << 5;
-      prow_hi[r] = ((letters >> 8) & 31) << 5;
-      if (!kDirs) {
-        rmask[r] = kMode == kLocal ? halves(i <= m_lo, i <= m_hi)
-                                   : halves(i == m_lo, i == m_hi);
-      }
+      const uint32_t letters = real && i0 + r < m_rows
+                                   ? patterns2[(i0 + r) * half_b + t]
+                                   : 0u;
+      prow[r] = ((letters & 31) * k | (((letters >> 8) & 31) * k) << 16) *
+                sizeof(int16_t);
+      if (!kDirs && kMode != kLocal) rmask[r] = halves(i == m_lo, i == m_hi);
     }
+    // Local: the stripe's rows each pair tracks (rows <= m); semi and
+    // global words: row m's place in the stripe.
+    const int ok_lo = min(max(m_lo - i0, 0), kRows);
+    const int ok_hi = min(max(m_hi - i0, 0), kRows);
+    const int row_m_lo = m_lo - i0 - 1;
+    const int row_m_hi = m_hi - i0 - 1;
+    const bool full_rows = __all_sync(
+        kFull, (ok_lo == 0 || ok_lo == kRows) && (ok_hi == 0 || ok_hi == kRows));
     // H[i0, 0]
     uint32_t diag0;
     if (kMode == kLocal) {
@@ -189,43 +289,64 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
     int32_t* words = nullptr;
     int32_t* words2 = nullptr;
     if (kDirs) {
-      const int64_t at = (tile * num_w + w) * n_cols * tile_pairs + slot;
+      const int64_t at = (tile * num_w + s) * n_cols * tile_pairs + slot;
       words = dirs + at;
       if (kAffine) words2 = dirs2 + at;
     }
-    // H[i0, j+1] of the row above: row 0's boundary, or the scratch.
-    auto top_at = [&](int j) -> uint32_t {
-      if (w == 0) {
+    // The stripe's bottom row goes to the next warp's ring, or from the
+    // last warp to the global scratch for the next pass.
+    const bool to_next = s + 1 < stripes;
+    const bool to_ring = to_next && warp + 1 < warps;
+    const bool to_global = to_next && warp + 1 == warps && real;
+    const uint32_t* in_h =
+        rings16 + max(warp - 1, 0) * kRingCols * kWarp + lane;
+    uint32_t* out_h = rings16 + warp * kRingCols * kWarp + lane;
+    // The ring entry of column c of the block running: blocks g and
+    // g + kRingCols / kSB share entries, whatever their columns.
+    auto ring_at = [&](int c) {
+      return (chain.blocks_done * kSB + c) & (kRingCols - 1);
+    };
+    // H[i0, j+1] of the row above: row 0's boundary, the ring of the
+    // warp above, or (warp 0) the global scratch.
+    auto top_at = [&](int j, int c) -> uint32_t {
+      if (s == 0) {
         if (kMode != kGlobal) return 0u;
         return splat(kAffine ? -gap - ge * j : -gap * (j + 1));
       }
-      return row[j * half_b + t];
+      if (warp > 0) return in_h[ring_at(c) * kWarp];
+      return real ? row[j * half_b + t] : 0u;
     };
     // F[i0, j+1] (affine): row 0 starts no run.
-    auto ftop_at = [&](int j) -> uint32_t {
-      return w == 0 ? neg2 : frow[j * half_b + t];
+    auto ftop_at = [&](int j, int c) -> uint32_t {
+      if (s == 0) return neg2;
+      if (warp > 0) return in_h[ring_plane + ring_at(c) * kWarp];
+      return real ? frow[j * half_b + t] : 0u;
     };
     uint32_t top_next = 0;
     uint32_t ftop_next = 0;
-    uint32_t t_next = 0;
-    if (cols > 0) {
-      top_next = top_at(0);
-      if (kAffine) ftop_next = ftop_at(0);
-      t_next = texts2[t];
-    }
+    uint32_t t_next = cols > 0 && real ? texts2[t] : 0u;
     for (int j = 0; j < cols; ++j) {
+      const int c = j & (kSB - 1);
+      if (c == 0) {
+        chain.begin_block(s, to_ring);
+        top_next = top_at(j, 0);
+        if (kAffine) ftop_next = ftop_at(j, 0);
+      }
       const uint32_t top0 = top_next;
       const uint32_t ftop0 = ftop_next;
-      const int t_lo = t_next & 31;
-      const int t_hi = (t_next >> 8) & 31;
+      // The two pairs' text letters' byte offsets, in the halves.
+      const uint32_t t2 =
+          ((t_next & 31) | ((t_next >> 8) & 31) << 16) * sizeof(int16_t);
       if (j + 1 < cols) {
-        top_next = top_at(j + 1);
-        if (kAffine) ftop_next = ftop_at(j + 1);
-        t_next = texts2[(j + 1) * half_b + t];
+        if (real) t_next = texts2[(j + 1) * half_b + t];
+        if (c + 1 < kSB) {
+          top_next = top_at(j + 1, c + 1);
+          if (kAffine) ftop_next = ftop_at(j + 1, c + 1);
+        }
       }
-      // Score-only: the columns each pair tracks.
+      // Semi, global score-only: the columns each pair tracks.
       uint32_t cmask = 0;
-      if (!kDirs) {
+      if (!kDirs && kMode != kLocal) {
         cmask = kMode == kGlobal ? halves(j == n_lo - 1, j == n_hi - 1)
                                  : halves(j < n_lo, j < n_hi);
       }
@@ -233,12 +354,16 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
       uint32_t f = ftop0;   // F[i-1, j+1] (affine)
       uint32_t dg = diag0;  // H[i-1, j], from the last column
       uint32_t word_lo = 0, word_hi = 0, word2_lo = 0, word2_hi = 0;
+      uint32_t hm_lo = 0, hm_hi = 0;  // semi, global words: H in row m
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const uint32_t left = h[r];
-        const uint32_t s = __byte_perm(
-            static_cast<uint16_t>(sub[prow_lo[r] | t_lo]),
-            static_cast<uint16_t>(sub[prow_hi[r] | t_hi]), 0x5410);
+        const uint32_t at2 = prow[r] + t2;  // both table byte offsets
+        const char* table = reinterpret_cast<const char*>(sub);
+        const uint32_t s2 = __byte_perm(
+            *reinterpret_cast<const uint16_t*>(table + (at2 & 0xFFFF)),
+            *reinterpret_cast<const uint16_t*>(table + (at2 >> 16)),
+            0x5410);
         uint32_t cur;
         if constexpr (!kDirs) {
           uint32_t gap_best;
@@ -251,18 +376,17 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
             gap_best = __vsub2(__vmaxs2(up, left), gap2);
           }
           // max(diag + s, gap_best), floored at 0 for local.
-          cur = kMode == kLocal ? __viaddmax_s16x2_relu(dg, s, gap_best)
-                                : __viaddmax_s16x2(dg, s, gap_best);
-          const uint32_t ok = rmask[r] & cmask;
-          if (kMode == kLocal) {
-            acc2 = __vmaxs2(acc2, cur & ok);
-          } else if (kMode == kSemi) {
+          cur = kMode == kLocal ? __viaddmax_s16x2_relu(dg, s2, gap_best)
+                                : __viaddmax_s16x2(dg, s2, gap_best);
+          if (kMode == kSemi) {
+            const uint32_t ok = rmask[r] & cmask;
             acc2 = __vmaxs2(acc2, (cur & ok) | (neg2 & ~ok));
-          } else {
+          } else if (kMode == kGlobal) {
+            const uint32_t ok = rmask[r] & cmask;
             acc2 = (cur & ok) | (acc2 & ~ok);
           }
         } else {
-          const uint32_t diag = __vadd2(dg, s);
+          const uint32_t diag = __vadd2(dg, s2);
           uint32_t gap_best;
           bool left_hi, left_lo;  // the gap move is LEFT (E >= F)
           if constexpr (kAffine) {
@@ -293,17 +417,37 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
                      << (2 * r);
           word_hi |= dir_code(nd_hi, left_hi, local && hi16(best) <= 0)
                      << (2 * r);
-          const int i = i0 + r + 1;
-          track<kMode>(lo16(cur), i, j, n_lo, m_lo, acc_lo, bi_lo, bj_lo);
-          track<kMode>(hi16(cur), i, j, n_hi, m_hi, acc_hi, bi_hi, bj_hi);
+          if (kMode != kLocal) {
+            hm_lo = r == row_m_lo ? cur : hm_lo;
+            hm_hi = r == row_m_hi ? cur : hm_hi;
+          }
         }
         h[r] = cur;
         dg = left;
         up = cur;
       }
       diag0 = top0;
-      row[j * half_b + t] = up;  // H[i0+16, j+1] for the next stripe
-      if (kAffine) frow[j * half_b + t] = f;
+      if (kMode == kLocal) {
+        track_column16<kDirs>(h, j, i0, n_lo, n_hi, ok_lo, ok_hi, full_rows,
+                              acc2, acc, bi, bj);
+      } else if (kDirs) {
+        if (row_m_lo >= 0 && row_m_lo < kRows) {
+          track_row_m<kMode>(lo16(hm_lo), j, n_lo, m_lo, acc[0], bi[0],
+                             bj[0]);
+        }
+        if (row_m_hi >= 0 && row_m_hi < kRows) {
+          track_row_m<kMode>(hi16(hm_hi), j, n_hi, m_hi, acc[1], bi[1],
+                             bj[1]);
+        }
+      }
+      // H[i0+16, j+1] (and F) for the next stripe.
+      if (to_ring) {
+        out_h[ring_at(c) * kWarp] = up;
+        if (kAffine) out_h[ring_plane + ring_at(c) * kWarp] = f;
+      } else if (to_global) {
+        row[j * half_b + t] = up;
+        if (kAffine) frow[j * half_b + t] = f;
+      }
       if (kDirs) {
         const int64_t at = static_cast<int64_t>(j) * tile_pairs;
         *reinterpret_cast<uint2*>(words + at) = make_uint2(word_lo, word_hi);
@@ -312,19 +456,29 @@ __global__ void __launch_bounds__(kMaxThreads) interpair16_kernel(
               make_uint2(word2_lo, word2_hi);
         }
       }
+      if (c == kSB - 1 || j + 1 == cols) chain.end_block();
     }
   }
-  if (!kDirs) {
-    acc_lo = lo16(acc2);
-    acc_hi = hi16(acc2);
+  if (trace != nullptr && lane == 0) {
+    int32_t* mine = trace + (blockIdx.x * warps + warp) * kTraceWords;
+    mine[0] = sleeps[warp];
+    mine[1] = sleeps[warps + warp];
+    mine[3] = static_cast<int32_t>(band_stream::clock_ns());
   }
-  scores[p] = kMode == kLocal ? max(acc_lo, 0) : acc_lo;
-  scores[p + 1] = kMode == kLocal ? max(acc_hi, 0) : acc_hi;
-  if (kDirs) {
-    best_is[p] = bi_lo;
-    best_js[p] = bj_lo;
-    best_is[p + 1] = bi_hi;
-    best_js[p + 1] = bj_hi;
+  if (!kDirs) {
+    acc[0] = lo16(acc2);
+    acc[1] = hi16(acc2);
+  }
+  merge<2>(reinterpret_cast<int32_t*>(rings16), warps, acc, bi, bj);
+  if (warp == 0 && real) {
+    scores[p] = kMode == kLocal ? max(acc[0], 0) : acc[0];
+    scores[p + 1] = kMode == kLocal ? max(acc[1], 0) : acc[1];
+    if (kDirs) {
+      best_is[p] = bi[0];
+      best_js[p] = bj[0];
+      best_is[p + 1] = bi[1];
+      best_js[p + 1] = bj[1];
+    }
   }
 }
 
@@ -338,31 +492,112 @@ struct Args {
   int64_t b;
   int n_cols, m_rows, tile_pairs;
   uint32_t *row, *frow;
-  int32_t *scores, *best_is, *best_js, *dirs, *dirs2;
+  int32_t *scores, *best_is, *best_js, *dirs, *dirs2, *trace;
 };
 
-template <int kMode, bool kDirs, bool kAffine>
-void launch(const Args& a, int blocks, int threads, cudaStream_t stream) {
-  interpair16_kernel<kMode, kDirs, kAffine><<<blocks, threads, 0, stream>>>(
+template <int kMode, bool kDirs, bool kAffine, int kSB>
+cudaError_t launch(const Args& a, int grid, int warps, cudaStream_t stream) {
+  const auto kernel = interpair16_kernel<kMode, kDirs, kAffine, kSB>;
+  const int ring_bytes =
+      (kAffine ? 2 : 1) * warps * kRingCols * kWarp * sizeof(uint32_t);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, warps * kWarp, ring_bytes, stream>>>(
       a.texts, a.patterns, a.ns, a.ms, a.score_matrix, a.k, a.gap, a.ge,
       a.b, a.n_cols, a.m_rows, a.tile_pairs, a.row, a.frow, a.scores,
-      a.best_is, a.best_js, a.dirs, a.dirs2);
+      a.best_is, a.best_js, a.dirs, a.dirs2, a.trace);
+  return cudaGetLastError();
+}
+
+template <int kMode, bool kDirs, bool kAffine>
+cudaError_t launch_block(const Args& a, int grid, int warps, int sb,
+                         cudaStream_t stream) {
+#ifdef SA_INTERPAIR_ALL_SHAPES
+  switch (sb) {
+    case 2: return launch<kMode, kDirs, kAffine, 2>(a, grid, warps, stream);
+    case 4: return launch<kMode, kDirs, kAffine, 4>(a, grid, warps, stream);
+    case 8: return launch<kMode, kDirs, kAffine, 8>(a, grid, warps, stream);
+    case 16: return launch<kMode, kDirs, kAffine, 16>(a, grid, warps, stream);
+    default: return cudaErrorInvalidValue;
+  }
+#else
+  constexpr int kSB = block_of(kDirs, kAffine);
+  if (sb != kSB) return cudaErrorInvalidValue;
+  return launch<kMode, kDirs, kAffine, kSB>(a, grid, warps, stream);
+#endif
 }
 
 template <int kMode>
-void launch_mode(const Args& a, bool with_dirs, bool affine, int blocks,
-                 int threads, cudaStream_t stream) {
+cudaError_t launch_mode(const Args& a, bool with_dirs, bool affine, int grid,
+                        int warps, int sb, cudaStream_t stream) {
   if (affine) {
-    if (with_dirs) {
-      launch<kMode, true, true>(a, blocks, threads, stream);
-    } else {
-      launch<kMode, false, true>(a, blocks, threads, stream);
-    }
-  } else if (with_dirs) {
-    launch<kMode, true, false>(a, blocks, threads, stream);
-  } else {
-    launch<kMode, false, false>(a, blocks, threads, stream);
+    return with_dirs
+               ? launch_block<kMode, true, true>(a, grid, warps, sb, stream)
+               : launch_block<kMode, false, true>(a, grid, warps, sb, stream);
   }
+  return with_dirs
+             ? launch_block<kMode, true, false>(a, grid, warps, sb, stream)
+             : launch_block<kMode, false, false>(a, grid, warps, sb, stream);
+}
+
+// The warps a CTA runs for at most `most`: the stripes of m_rows rows
+// evened over the passes.
+int evened_warps(int most, int m_rows) {
+  const int stripes = max((m_rows + kRows - 1) / kRows, 1);
+  const int passes = (stripes + most - 1) / most;
+  return (stripes + passes - 1) / passes;
+}
+
+// The warps a CTA runs in code for a batch of b pairs on a card of `sms`
+// SMs: the variant's most (warps_of), or kMaxWarps when the grid has
+// fewer CTAs than the card has SMs (a long pair of a ragged batch then
+// runs on an SM of its own, and its chain has every warp a CTA may
+// take), evened.
+int warps_in_code(bool with_dirs, bool affine, int m_rows, int64_t b,
+                  int sms) {
+  const int64_t ctas = (b + (2 * kWarp) - 1) / (2 * kWarp);
+  const int most = ctas < sms ? kMaxWarps : warps_of(with_dirs, affine);
+  return evened_warps(most, m_rows);
+}
+
+// The number of SMs of the current device.
+cudaError_t multiprocessors(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+int fill(const int8_t* texts, const int8_t* patterns, const int32_t* ns,
+         const int32_t* ms, const int32_t* score_matrix, int k, int gap,
+         int gap_extend, int affine, int64_t b, int n_cols, int m_rows,
+         int tile_pairs, int mode, int with_dirs, int32_t* row,
+         int32_t* frow, int32_t* scores, int32_t* best_is, int32_t* best_js,
+         int32_t* dirs, int32_t* dirs2, int warps, int sb, int32_t* trace,
+         void* stream) {
+  if (k < 1 || k > 32 || b < 0 || b % 2 || n_cols < 1 || m_rows < 1 ||
+      tile_pairs < 1 || mode < 0 || mode > 2 ||
+      (with_dirs && (m_rows % kRows || tile_pairs % 2 || b % tile_pairs)) ||
+      (affine && (frow == nullptr || (with_dirs && dirs2 == nullptr))) ||
+      warps < 1 || warps > kMaxWarps) {
+    return cudaErrorInvalidValue;
+  }
+  if (b == 0) return cudaSuccess;
+  const int64_t blocks = (b / 2 + kWarp - 1) / kWarp;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Args a{texts, patterns, ns, ms, score_matrix, k, gap,
+               affine ? gap_extend : 0, b, n_cols, m_rows, tile_pairs,
+               reinterpret_cast<uint32_t*>(row),
+               reinterpret_cast<uint32_t*>(frow), scores, best_is, best_js,
+               dirs, dirs2, trace};
+  const bool d = with_dirs != 0;
+  const bool af = affine != 0;
+  const int grid = static_cast<int>(blocks);
+  if (mode == kGlobal) return launch_mode<kGlobal>(a, d, af, grid, warps, sb, s);
+  if (mode == kLocal) return launch_mode<kLocal>(a, d, af, grid, warps, sb, s);
+  return launch_mode<kSemi>(a, d, af, grid, warps, sb, s);
 }
 
 }  // namespace
@@ -379,41 +614,49 @@ extern "C" int sa_interpair16_fill(
     int tile_pairs, int mode, int with_dirs, int32_t* row, int32_t* frow,
     int32_t* scores, int32_t* best_is, int32_t* best_js, int32_t* dirs,
     int32_t* dirs2, void* stream) {
-  if (k < 1 || k > 32 || b < 0 || b % 2 || n_cols < 1 || m_rows < 1 ||
-      tile_pairs < 1 || mode < 0 || mode > 2 ||
-      (with_dirs && (m_rows % kRows || tile_pairs % 2 || b % tile_pairs)) ||
-      (affine && (frow == nullptr || (with_dirs && dirs2 == nullptr)))) {
-    return cudaErrorInvalidValue;
-  }
-  if (b == 0) return cudaSuccess;
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int64_t threads_needed = b / 2;
-  int threads = kMaxThreads;
-  while (threads > 32 && (threads_needed + threads - 1) / threads < sms) {
-    threads /= 2;
-  }
-  const int64_t blocks = (threads_needed + threads - 1) / threads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  const Args a{texts, patterns, ns, ms, score_matrix, k, gap,
-               affine ? gap_extend : 0, b, n_cols, m_rows, tile_pairs,
-               reinterpret_cast<uint32_t*>(row),
-               reinterpret_cast<uint32_t*>(frow), scores, best_is, best_js,
-               dirs, dirs2};
   const bool d = with_dirs != 0;
   const bool af = affine != 0;
-  const int grid = static_cast<int>(blocks);
-  if (mode == kGlobal) {
-    launch_mode<kGlobal>(a, d, af, grid, threads, s);
-  } else if (mode == kLocal) {
-    launch_mode<kLocal>(a, d, af, grid, threads, s);
-  } else {
-    launch_mode<kSemi>(a, d, af, grid, threads, s);
-  }
-  return cudaGetLastError();
+  int sms = 0;
+  const cudaError_t err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
+              affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
+              frow, scores, best_is, best_js, dirs, dirs2,
+              warps_in_code(d, af, m_rows, b, sms), block_of(d, af),
+              nullptr, stream);
 }
+
+// The shape sa_interpair16_fill takes for the variant on a batch of b pairs
+// of m_rows pattern rows: out[0] warps a CTA, out[1] columns a block,
+// out[2] the most warps a CTA may run, out[3] the variant's most for a
+// grid that fills the card (warps_of); out[0] is 0 when the device
+// cannot be read.
+extern "C" void sa_interpair16_shape(int with_dirs, int affine, int m_rows,
+                                     int64_t b, int* out) {
+  const bool d = with_dirs != 0;
+  const bool af = affine != 0;
+  int sms = 0;
+  out[0] = multiprocessors(&sms) == cudaSuccess
+               ? warps_in_code(d, af, m_rows, b, sms)
+               : 0;
+  out[1] = block_of(d, af);
+  out[2] = kMaxWarps;
+  out[3] = warps_of(d, af);
+}
+
+#ifdef SA_INTERPAIR_ALL_SHAPES
+// sa_interpair16_fill at `warps` warps a CTA and `sb` columns a block (2,
+// 4, 8 or 16); `trace` as sa_interpair_fill_shape's.
+extern "C" int sa_interpair16_fill_shape(
+    const int8_t* texts, const int8_t* patterns, const int32_t* ns,
+    const int32_t* ms, const int32_t* score_matrix, int k, int gap,
+    int gap_extend, int affine, int64_t b, int n_cols, int m_rows,
+    int tile_pairs, int mode, int with_dirs, int32_t* row, int32_t* frow,
+    int32_t* scores, int32_t* best_is, int32_t* best_js, int32_t* dirs,
+    int32_t* dirs2, int warps, int sb, int32_t* trace, void* stream) {
+  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
+              affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
+              frow, scores, best_is, best_js, dirs, dirs2, warps, sb, trace,
+              stream);
+}
+#endif

@@ -96,15 +96,23 @@ class PairAligner:
         """The direct route when the pair fits it, else the checkpoint
         engine.  A direct run that runs out of device memory (the budget
         assumes a card of its own) is retried on the checkpoint engine, on
-        the same device; any other error propagates."""
+        the same device: any ``RuntimeError`` whose message says "out of
+        memory" (any case) or "RESOURCE_EXHAUSTED", as the reference
+        tests, which takes in ``torch.cuda.OutOfMemoryError``, a kernel
+        launch's ``cudaErrorMemoryAllocation`` and torch's untyped "CUDA
+        error: out of memory".  Any other error propagates."""
         n, m = len(text), len(pattern)
         if direct.fits_direct(n, m, affine=gap_extend is not None):
             try:
                 return self._align_direct(text, pattern, score_matrix,
                                           alphabet_size, gap_penalty, device,
                                           semi=semi, gap_extend=gap_extend)
-            except torch.cuda.OutOfMemoryError:
-                pass  # retried below, once the failed run's tensors are freed
+            except RuntimeError as e:
+                msg = str(e)
+                if ("out of memory" not in msg.lower()
+                        and "RESOURCE_EXHAUSTED" not in msg):
+                    raise
+            # Retried here, once the failed run's tensors are freed.
         return self._align_checkpoint(text, pattern, score_matrix,
                                       alphabet_size, gap_penalty, device,
                                       semi=semi, gap_extend=gap_extend)

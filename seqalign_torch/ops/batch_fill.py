@@ -43,12 +43,14 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import check_launch, library
+from ._build import c_function, check_launch, library
 
 NEG_INF = -(1 << 30)
 NEG_HALF = NEG_INF // 2  # E and F before any gap run (affine)
 DIR_ROWS_PER_WORD = 16
 TILE_QUANTUM = 128  # tile_pairs is a multiple of this (the JAX layout)
+WARP = 32  # pairs a CTA of K3 (64 of K3-cell16, two a lane)
+TRACE_WORDS = 4  # a warp's trace (csrc/interpair_chain.cuh's kTraceWords)
 # int16 cell mode (the JAX package's values): sentinels at -2^14; every
 # DP value must stay clear of them and of int16 wraparound, which
 # int16_cells_ok bounds over the padded shapes.
@@ -119,7 +121,7 @@ def _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend,
 def _pair_columns(x, b2):
     """(B, W) letters as [column][pair] int8, (W, b2): a warp reads
     neighbouring bytes.  Pairs past B (one, to make the batch even for
-    the two-pairs-a-thread int16 kernel) get zero letters."""
+    the two-pairs-a-lane int16 kernel) get zero letters."""
     out = x.to(torch.int8).t()
     if b2 == x.shape[0]:
         return out.contiguous()
@@ -142,10 +144,47 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
     [column][pair] int8 order and the outputs allocated.  Returns
     (launch, (scores, best_is, best_js, dirs)), with dirs2 fifth for
     affine gaps; each ``launch()`` runs the kernel once on the current
-    stream, raising if the launch failed, and counts nothing (the
-    wrappers count their launches).  ``cell16``: the int16 kernel, two
-    pairs a thread; an odd score-only batch gains one padding pair on
-    the device, and its score is not returned."""
+    stream (a second run writes the same outputs), raising if the launch
+    failed, and counts nothing (the wrappers count their launches).
+    ``cell16``: the int16 kernel, two pairs a lane; an odd score-only
+    batch gains one padding pair on the device, and its score is not
+    returned."""
+    name = "interpair16" if cell16 else "interpair"
+    return shape_launch(library(name), None, texts, patterns, ns, ms,
+                        score_matrix, gap, k_alpha, local, semi,
+                        tile_pairs=tile_pairs, with_dirs=with_dirs,
+                        gap_extend=gap_extend, cell16=cell16)
+
+
+def shape_in_code(lib, with_dirs, affine, m_rows, b, cell16=False):
+    """(warps a CTA, columns a block, the most warps a CTA may run, the
+    variant's most for a grid that fills the card) that ``lib``, a build
+    of ``csrc/interpair.cu`` (``interpair16.cu`` with ``cell16``), takes
+    for the variant on ``b`` pairs of ``m_rows`` pattern rows."""
+    name = "interpair16" if cell16 else "interpair"
+    out = (ctypes.c_int * 4)()
+    fn = c_function(lib, f"sa_{name}_shape",
+                    [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int64, ctypes.c_void_p], None)
+    fn(int(with_dirs), int(affine), int(m_rows), int(b),
+       ctypes.addressof(out))
+    return tuple(out)
+
+
+def shape_launch(lib, shape, texts, patterns, ns, ms, score_matrix, gap,
+                 k_alpha, local, semi, *, tile_pairs, with_dirs,
+                 gap_extend=None, cell16=False, trace=False):
+    """``kernel_launch`` through ``lib``, a build of ``csrc/interpair.cu``
+    (``interpair16.cu`` with ``cell16``): ``shape`` None calls
+    ``sa_interpair[16]_fill`` at the variant's own shape; ``shape`` =
+    (warps a CTA, columns a block) calls the all-shapes build's
+    ``sa_interpair[16]_fill_shape`` at it, and with ``trace`` gives
+    ``launch.trace``, TRACE_WORDS int32 a warp of each CTA (the sleeps
+    waiting for the top row, the sleeps waiting for a ring block, the
+    GPU's nanosecond clock at the kernel's start and after the warp's
+    last block); ``launch.warps`` and ``launch.ctas`` are its shape and
+    ``launch.scratch`` the global scratch (row, frow or None) that the
+    last warp hands to the first through."""
     device = texts.device
     b, n_cols = texts.shape
     m_rows = patterns.shape[1]
@@ -157,8 +196,8 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
     sm = score_matrix.contiguous()
     i32 = torch.int32
     affine = gap_extend is not None
-    # The stripes' bottom rows (and F): one int32 a pair, or one packed
-    # pair of int16 cells a thread.
+    # The bottom rows (and F) the last warp hands to the first: one int32
+    # a pair, or one packed pair of int16 cells a lane.
     row_shape = (n_cols, b2 // 2 if cell16 else b2)
     row = torch.empty(row_shape, dtype=i32, device=device)
     frow = torch.empty(row_shape, dtype=i32, device=device) \
@@ -168,44 +207,49 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
     if with_dirs:
         best_is = torch.empty(b, dtype=i32, device=device)
         best_js = torch.empty(b, dtype=i32, device=device)
-        shape = (b // tile_pairs, m_rows // DIR_ROWS_PER_WORD, n_cols,
-                 tile_pairs // 128, 128)
-        dirs = torch.empty(shape, dtype=i32, device=device)
+        out_shape = (b // tile_pairs, m_rows // DIR_ROWS_PER_WORD, n_cols,
+                     tile_pairs // 128, 128)
+        dirs = torch.empty(out_shape, dtype=i32, device=device)
         if affine:
-            dirs2 = torch.empty(shape, dtype=i32, device=device)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
+            dirs2 = torch.empty(out_shape, dtype=i32, device=device)
     name = "interpair16" if cell16 else "interpair"
+    warps = (shape_in_code(lib, with_dirs, affine, m_rows, b2, cell16)[0]
+             if shape is None else shape[0])
+    ctas = -(-b2 // (2 * WARP if cell16 else WARP))
+    trace_buf = (torch.zeros(ctas * warps * TRACE_WORDS, dtype=i32,
+                             device=device) if trace else None)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = c_function(lib, f"sa_{name}_fill" if shape is None
+                    else f"sa_{name}_fill_shape",
+                    [p] * 5 + [i, i, i, i, ctypes.c_int64, i, i, i, i, i]
+                    + [p] * 7 + [i, i, p] * (shape is not None) + [p])
+    tail = () if shape is None else (*shape, ptr(trace_buf))
 
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel(name)(
+            rc = fn(
                 texts_cp.data_ptr(), patterns_cp.data_ptr(), ns.data_ptr(),
                 ms.data_ptr(), sm.data_ptr(), k_alpha, int(gap),
                 int(gap_extend) if affine else 0, int(affine), b2, n_cols,
                 m_rows, tile_pairs or TILE_QUANTUM, mode_code(local, semi),
                 int(with_dirs), row.data_ptr(), ptr(frow), scores.data_ptr(),
-                ptr(best_is), ptr(best_js), ptr(dirs), ptr(dirs2), stream,
+                ptr(best_is), ptr(best_js), ptr(dirs), ptr(dirs2), *tail,
+                stream,
             )
         check_launch(name, rc)
 
+    launch.trace = trace_buf
+    launch.warps = warps
+    launch.ctas = ctas
+    launch.scratch = (row, frow)
     out = (scores[:b], best_is, best_js, dirs)
     return launch, (out + (dirs2,) if affine else out)
 
 
-def _kernel(name):
-    """The C entry point of kernel library ``name`` (``interpair`` or
-    ``interpair16``: one signature)."""
-    fn = getattr(library(name), f"sa_{name}_fill")
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [i, i, i, i, ctypes.c_int64, i, i, i, i, i]
-                       + [p] * 8)
-        fn.restype = ctypes.c_int
-    return fn
+def ptr(x):
+    """A tensor's device address, or None for no tensor."""
+    return None if x is None else x.data_ptr()
 
 
 def batch_score(texts, patterns, ns, ms, score_matrix, gap, k_alpha: int,

@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``parallel/batch.py::BatchAligner`` for a
 single GPU.  Pairs are grouped into buckets of one padded shape; K3
-(``ops/batch_fill``) fills a bucket with one pair per thread and, for
+(``ops/batch_fill``) fills a bucket, 32 pairs a CTA, and, for
 ``align``, K4 (``ops/batch_traceback``) walks every pair's path on the
 device, so only scores, best cells and 2-bit packed moves come back.
 The host replays the moves through the native ``sa_emit_moves_batch``,

@@ -463,3 +463,29 @@ def test_affine_out_of_memory_retries_on_checkpoint_engine(monkeypatch,
     assert len(engine_calls["checkpoint"]) == 1
     assert engine_calls["checkpoint"][0]["gap_extend"] == EXT
     assert_alignment(got, want)
+
+
+def test_affine_launch_out_of_memory_retries_on_checkpoint_engine(
+        monkeypatch, engine_calls):
+    def out_of_memory(*args, **kwargs):
+        raise RuntimeError("direct kernel launch failed: "
+                           "cudaErrorMemoryAllocation: out of memory "
+                           "(cudaError_t 2)")
+
+    monkeypatch.setattr(port_direct, "direct_align", out_of_memory)
+    got, want = routed("local", 521)
+    assert len(engine_calls["checkpoint"]) == 1
+    assert engine_calls["checkpoint"][0]["gap_extend"] == EXT
+    assert_alignment(got, want)
+
+
+def test_affine_other_direct_errors_propagate(monkeypatch, engine_calls):
+    def fails(*args, **kwargs):
+        raise RuntimeError("direct kernel launch failed: "
+                           "cudaErrorIllegalAddress: an illegal memory "
+                           "access was encountered (cudaError_t 700)")
+
+    monkeypatch.setattr(port_direct, "direct_align", fails)
+    with pytest.raises(RuntimeError, match="cudaErrorIllegalAddress"):
+        routed("semi", 522)
+    assert engine_calls["checkpoint"] == []

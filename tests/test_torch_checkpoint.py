@@ -268,6 +268,29 @@ def test_direct_out_of_memory_retries_on_checkpoint_engine(monkeypatch,
     assert_alignment(got, want)
 
 
+# Out-of-memory errors that are not torch.cuda.OutOfMemoryError: a kernel
+# launch's (ops/_build.py::check_launch), torch's untyped one, and the
+# reference's other phrase.
+UNTYPED_OOM = (
+    "direct kernel launch failed: cudaErrorMemoryAllocation: out of memory "
+    "(cudaError_t 2)",
+    "CUDA error: out of memory",
+    "RESOURCE_EXHAUSTED: while allocating the words",
+)
+
+
+@pytest.mark.parametrize("message", UNTYPED_OOM)
+def test_direct_untyped_out_of_memory_retries_on_checkpoint_engine(
+        message, monkeypatch, checkpoint_calls):
+    def out_of_memory(*args, **kwargs):
+        raise RuntimeError(message)
+
+    monkeypatch.setattr(port_direct, "direct_align", out_of_memory)
+    got, want = routed("global", 363)
+    assert len(checkpoint_calls) == 1
+    assert_alignment(got, want)
+
+
 def test_direct_other_errors_propagate(monkeypatch, checkpoint_calls):
     def fails(*args, **kwargs):
         raise RuntimeError("launch failed")
