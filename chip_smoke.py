@@ -12,11 +12,13 @@ without its last line:
    K3 ``csrc/interpair.cu``, K3-cell16 ``csrc/interpair16.cu``, K4
    ``csrc/batch_walk.cu``, K5 ``csrc/strip.cu``, the probes P2
    ``csrc/probe_dpx16.cu`` and P1 ``csrc/probe_chase.cu``) and the native
-   oracle from the sources, all at once (and K2's all-shapes build of
-   ``probes/walk_shapes.py`` beside them), and print the build time and
-   ptxas's lines; fail if any K1, K5, K2, K3 or K3-cell16 instance
-   spills, or if K2's window shapes (``sa_walk_window_slots``/
-   ``_groups``) differ from ``ops/walk.window_shape``'s.
+   oracle from the sources, all at once (and the all-shapes builds of
+   K2, ``probes/walk_shapes.py``, and K4, ``probes/batch_walk_shapes.py``,
+   beside them), and print the build time and ptxas's lines; fail if any
+   K1, K5, K2, K3, K3-cell16 or K4 instance spills, or if K2's window
+   shapes (``sa_walk_window_slots``/``_groups``) differ from
+   ``ops/walk.window_shape``'s or K4's (``sa_batch_walk_shape_of``) from
+   ``ops/batch_traceback``'s.
 2. K1 against its plain PyTorch version, on the card: global, local and
    semi-global, DNA and protein, at rps 8 and 16 with 4096 slots and at
    rps 8 with 1024 slots.  Every output is an integer, so the comparison
@@ -60,7 +62,12 @@ without its last line:
    warps, so the last warp hands its rows to the first through the
    global scratch), both variants in the three modes, and each launch
    closure 5 times with its outputs and scratch poisoned between runs
-   (``repeat_k3_launches``).  Exact.
+   (``repeat_k3_launches``).  Then K4's stress set (``k4_stress_checks``:
+   K3-filled batches with padding pairs and 64-move buffers, numpy words
+   with random, all-LEFT, all-TOP, all-DIAG and zig-zag paths and starts
+   outside the words, through the production build and the least run)
+   and its launch closure 5 times with every output poisoned before each
+   run.  Exact.
 7. The batch main path: ``BatchAligner.score`` and ``.align`` on a
    ragged mix of random and bundled pairs with empty ones among them, in
    the three modes, DNA and protein; every score equals ``oracle_fill``'s
@@ -148,11 +155,13 @@ without its last line:
     exact, with the outputs and the bands' stream values poisoned
     between runs.
 17. The strip engine through ``-g`` (``SEQALIGN_PAIR_ENGINE=strip``),
-    with the native walk and with ``SEQALIGN_TRACEBACK=device`` (K4): the
+    with the native walk and with ``SEQALIGN_TRACEBACK=device`` (K4's
+    single-pair walk, K4-packed): the
     main path's global and local pairs, GCA_003434045 x NC_001490.1
     (one K5 launch of 7,296 x 49,152) and GCA_003434045 x NC_024446.1
     (tiled, 2 strips x 4 blocks) in both modes, each byte-identical to
-    ``-c``; launch counters show K5 (and K4 in device mode), never K1;
+    ``-c``; launch counters show K5 (and K4-packed in device mode), never
+    K1;
     the semi-global and affine requests still take K1, never K5.  The
     7,296 x 49,152 region, global and local, whole through the wrapper
     against the plain version on the run's own inputs.
@@ -169,7 +178,12 @@ without its last line:
     on their own inputs; the launches alone of the interior block (its
     CTAs and the SMs they ran on logged), the long pair's block and
     phase 17's single region (CUDA events, best of 3), each beside its
-    bound, and the interior block's words' D2H.
+    bound, and the interior block's words' D2H.  Then K4-packed
+    (``walk_packed``) of the device-mode run alone, beside its bound and
+    chain floor, equal to the run's walk and to the plain version on a
+    CPU copy of the same words (the plain version timed there), and exact
+    against the plain version on the probe's window-edge set, with the
+    words its loaders cannot read refused (``phase_packed_walk``).
 19. Affine K3 (score-only and with the words and run bits) and affine
     K4 against their plain versions, on the card: global, local and
     semi-global, DNA and protein, extend below open and equal to it,
@@ -177,7 +191,8 @@ without its last line:
     tile_pairs 128 and 256; every score, best cell, word, run-bit word,
     move word, length and final cursor, K4 with the full buffer and with
     64 moves; then the wrapping K3 pairs of phase 6 at open 8 extend 2,
-    with 5 poisoned runs of each launch closure.  Exact.
+    with 5 poisoned runs of each launch closure; then K4-affine's stress
+    set and 5 poisoned runs, as in phase 6.  Exact.
 20. The affine batch main path: ``BatchAligner(gap_extend=2)`` at open
     8 (phase 15's costs), ``.score`` and ``.align`` on phase 7's mix in
     the three modes, DNA and protein; every score equals
@@ -230,7 +245,10 @@ without its last line:
     each workload, the rows in order of their longest launch), a JSON
     line of the kernels (each with its sums as ``main_path_ms`` and
     ``workload_ms``; K2's rows also with a path tile's time and the chain
-    floor, the moves times P1's shared-memory step of this run), the
+    floor, the moves times P1's shared-memory step of this run; K4's three
+    rows, ``K4 batch_walk``, ``K4-affine`` and ``K4-packed walk_packed``,
+    with their floors: the batch walks' sectors, a 32-byte sector a
+    4-byte read, over the memory rate, the single-pair walk's chain), the
     card's name and power limit from nvidia-smi,
     and ``{"ok": true, "device": {...}}``.
 
@@ -264,7 +282,8 @@ from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
                                 checkpoint, direct, layout, strip_fill, tiled,
                                 walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
-from seqalign_torch.probes import dpx16, walk_costs, walk_shapes
+from seqalign_torch.probes import (batch_walk_shapes, dpx16, walk_costs,
+                                   walk_shapes)
 from seqalign_torch.types import Request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -629,7 +648,7 @@ def ledger_row(kernel, a):
                 + ("-dirs" if a["with_dirs"] else "-score"))
     if kernel == "K4":
         return "K4-affine" if a["dirs2"] is not None else "K4"
-    return kernel
+    return kernel  # K5, K4-packed
 
 
 def install_ledger():
@@ -639,6 +658,7 @@ def install_ledger():
             ("K1", wavefront, "kernel_launch"), ("K2", walk, "kernel_launch"),
             ("K3", batch_fill, "kernel_launch"),
             ("K4", batch_traceback, "_launcher"),
+            ("K4-packed", batch_traceback, "packed_launch"),
             ("K5", strip_fill, "kernel_launch")):
         real = getattr(module, name)
         sig = inspect.signature(real)
@@ -728,8 +748,13 @@ def ptxas_summary(path):
                                r"(\d)ELi(\d+)E", name):
             label = (f"<mode {args[1]}, dirs {args[2]}, "
                      f"affine {args[3]}, columns/block {args[4]}>")
-        elif args := re.search(r"batch_walk_kernelILi(\d)ELb(\d)E", name):
-            label = f"<mode {args[1]}, affine {args[2]}>"
+        elif args := re.search(r"batch_walk_kernelILi(\d)ELb(\d)ELi(\d+)E",
+                               name):
+            label = f"<mode {args[1]}, affine {args[2]}, run {args[3]}>"
+        elif args := re.search(r"packed_walk_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+                               name):
+            label = (f"<window {args[1]} word rows x {args[2]} columns, "
+                     f"local {args[3]}>")
         elif re.search(r"(apply|rate)_kernelILi\d+ELb\dE", name):
             probes.append((int(regs), int(st)))
             continue
@@ -737,7 +762,8 @@ def ptxas_summary(path):
             label = ""
         kernel = re.search(r"(wavefront_strip_kernel|walk_window_kernel|"
                            r"interpair16_kernel|interpair_kernel|"
-                           r"batch_walk_kernel|strip_band_kernel|"
+                           r"batch_walk_kernel|packed_walk_kernel|"
+                           r"strip_band_kernel|"
                            r"chase_shared|chase_global)", name)
         lines.append(f"  {kernel[1] if kernel else name}{label}: {regs} "
                      f"registers, stack {stack} B, spill stores {st} B, "
@@ -1328,10 +1354,12 @@ def k3_wrap_checks(rng, costs, ids, device="cuda", cell16=False):
     return errs
 
 
-def phase_batch_kernels(device="cuda", b=512, n=300, m=208, affine=False):
-    """Phase 6: K3 (both variants) and K4 against their plain versions;
-    with ``affine``, phase 19: their affine instances (the run bits
-    too), at BATCH_AFFINE_KERNEL_COSTS."""
+def phase_batch_kernels(walk_lib, device="cuda", b=512, n=300, m=208,
+                        affine=False):
+    """Phase 6: K3 (both variants) and K4 against their plain versions,
+    then K4's stress set (``k4_stress_checks``, through ``walk_lib``, the
+    probe's all-shapes build); with ``affine``, phase 19: their affine
+    instances (the run bits too), at BATCH_AFFINE_KERNEL_COSTS."""
     rng = np.random.default_rng(2027 if affine else 2026)
     ids = (("K3-affine-score", "K3-affine-dirs", "K4-affine") if affine
            else ("K3-score", "K3-dirs", "K4"))
@@ -1402,7 +1430,56 @@ def phase_batch_kernels(device="cuda", b=512, n=300, m=208, affine=False):
                           ids[:2], device)
     for kid, err in wrap.items():
         errs[kid] = max(errs[kid], err)
+    k4_stress_checks(walk_lib, affine)
     return errs
+
+
+def k4_stress_checks(lib, affine):
+    """K4's stress set (``batch_walk_shapes.check_batch`` at the least
+    run, the linear or the affine cases): K3-filled ragged batches with
+    padding pairs in the three modes and 64-move buffers, words packed
+    from numpy with random, all-LEFT, all-TOP, all-DIAG and zig-zag paths
+    and starts outside the words, through the production build and the
+    probe's at run 1, each exact against the plain walk.  Then the
+    production launch closure of the first K3-filled case REPEATS times,
+    every output poisoned before each run: lengths and final cursors
+    equal to the plain walk's, the move words up to each pair's last
+    move equal, the words past it still the poison (the kernel leaves
+    them as the caller gave them)."""
+    what = f"K4{'-affine' if affine else ''}"
+    rows = batch_walk_shapes.check_batch(lib, least_only=True, affine=affine)
+    bad = [row for row in rows if not row[-1]]
+    check(rows and not bad, f"{what} stress set differs: {bad}")
+    log(f"{what} stress set (probes/batch_walk_shapes.py, the production "
+        f"build and run {batch_walk_shapes.LEAST_RUN}): {len(rows)} walks "
+        f"of {len({row[0] for row in rows})} batches, "
+        f"{sum(row[2] for row in rows)} moves, each exact")
+    (name, dirs, dirs2, ns, ms, bis, bjs, local, semi, max_len) = next(
+        case for case in batch_walk_shapes.batch_cases(
+            np.random.default_rng(12))
+        if (case[2] is not None) == affine)
+    want = batch_traceback.batch_walk_plain(dirs, ns, ms, bis, bjs, local,
+                                            semi, max_len, dirs2=dirs2)
+    launch, out = batch_traceback.kernel_launch(dirs, ns, ms, bis, bjs,
+                                                local, semi, max_len,
+                                                dirs2=dirs2)
+    packed = out[0]
+    words = torch.arange(packed.shape[0], device=packed.device)[:, None]
+    used = words * 16 < want[1][None, :]
+    for r in range(REPEATS):
+        poison = -12345 - r
+        for x in out:
+            x.fill_(poison)
+        launch()
+        torch.cuda.synchronize()
+        good = (all(torch.equal(x, y) for x, y in zip(out[1:], want[1:]))
+                and torch.equal(packed[used], want[0][used])
+                and bool((packed[~used] == poison).all()))
+        check(good, f"{what} {name}: run {r + 1} of {REPEATS} of one launch "
+                    f"closure differs")
+    log(f"{what} {name}: {REPEATS} runs of one launch closure, every output "
+        f"poisoned before each: lengths, cursors and moves exact, the words "
+        f"past the last move untouched")
 
 
 def read_request(argv):
@@ -1778,7 +1855,11 @@ def phase_align_width(data, oracle_aligned, device="cuda", costs=None,
             "shape": shape},
         k4: bound(k4_bytes, moves * k4_ops) | {
             "ms": k4_ms, "plain_ms": k4_plain_ms, "err": k4_err,
-            "shape": shape + f", {moves} moves, {reads} 4-byte reads"},
+            "shape": shape + f", {moves} moves, {reads} 4-byte reads",
+            # A pair's words lie tile_pairs x 4 B apart: each read is a
+            # 32-byte sector of its own.
+            "floor_ms": reads * 32 / HBM_BYTES_PER_S * 1e3,
+            "floor_by": "sectors"},
     }
 
 
@@ -3044,13 +3125,13 @@ STRIP_REPEATED = []
 def strip_launches():
     return {"K1": wavefront.wavefront_strip.launches,
             "K5": strip_fill.strip_fill.launches,
-            "K4": batch_traceback.batch_walk.launches}
+            "K4-packed": batch_traceback.walk_packed.launches}
 
 
 def reset_strip_launches():
     wavefront.wavefront_strip.launches = 0
     strip_fill.strip_fill.launches = 0
-    batch_traceback.batch_walk.launches = 0
+    batch_traceback.walk_packed.launches = 0
 
 
 STRIP_PLAIN = ((strip_fill, "strip_fill_plain"),
@@ -3172,7 +3253,7 @@ def phase_strip_main_path(main_outputs, affine_outputs, big_outputs):
                 check(out == out_c, f"strip {tb} {argv}: -g output differs "
                                     f"from -c")
                 expect = {"K1": 0, "K5": strip_blocks(n, m, tiled_route),
-                          "K4": 1 if tb == "device" else 0}
+                          "K4-packed": 1 if tb == "device" else 0}
                 check(delta == expect, f"strip {tb} {argv}: launches "
                                        f"{delta}, expected {expect}")
                 score = out.rstrip("\n").rsplit("\t", 1)[-1]
@@ -3193,7 +3274,7 @@ def phase_strip_main_path(main_outputs, affine_outputs, big_outputs):
             rc_c, out_c, _ = want()
             check(rc == 0 and rc_c == 0 and out == out_c,
                   f"strip setting, {argv}: -g output differs from -c")
-            check(delta == {"K1": 1, "K5": 0, "K4": 0},
+            check(delta == {"K1": 1, "K5": 0, "K4-packed": 0},
                   f"strip setting, {argv}: launches {delta}")
             log(f"-g {' '.join(argv)} with SEQALIGN_PAIR_ENGINE=strip: "
                 f"launches {delta} (the direct route), byte-identical to -c")
@@ -3281,7 +3362,7 @@ def events_ms(store):
 
 
 def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
-                           device="cuda"):
+                           walk_lib, device="cuda"):
     """Phase 18: -g with the strip engine on the full-width pair (the
     tiled fill, 9 strips x 6 blocks) in both traceback modes, byte-
     identical to phase 5's output, its score the oracle's; the wall split
@@ -3294,7 +3375,12 @@ def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
     the long pair), the K5 launches alone of the interior block (its CTAs
     and SMs), the long pair's block and phase 17's single region
     (``single_args``), each beside its bound, and the interior block's
-    words' D2H."""
+    words' D2H.  Then K4's single-pair walk (``walk_packed``) of the
+    device-mode run alone, beside its bound, held equal to the run's own
+    walk and to the plain version on the same words (timed there), and
+    K4-packed on ``batch_walk_shapes``' window-edge set (the production
+    window and the least, 2 word rows x 8 columns), exact against the
+    plain version (``walk_lib``, the probe's build)."""
     request = read_request(["-g", *FULL_WIDTH])
     n, m, k = len(request.text), len(request.pattern), request.alphabet_size
     check(strip_route_is_tiled(n, m), "full width: not the tiled route")
@@ -3302,6 +3388,7 @@ def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
     expected = oracle_score()
     result = {"blocks": blocks}
     held = {}
+    walked = []  # the device-mode walk: its arguments and outputs
     with plain_versions_forbidden(STRIP_PLAIN):
         for tb in ("host", "device"):
             k5_events, k4_events, walk_s = [], [], []
@@ -3318,7 +3405,10 @@ def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
                              SEQALIGN_TRACEBACK=tb), \
                     captured_regions(keep, held), \
                     event_timed(strip_fill, "kernel_launch", k5_events), \
-                    event_timed(batch_traceback, "_launcher", k4_events), \
+                    event_timed(batch_traceback, "packed_launch",
+                                k4_events), \
+                    captured_calls(batch_traceback, "packed_launch",
+                                   walked), \
                     staging_timed(wait_s, copy_s), \
                     host_timed(pretty, "pretty_alignment_print", print_s), \
                     walker:
@@ -3335,7 +3425,8 @@ def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
                                      f"oracle {expected}")
             check(out == fw_out, f"strip full width {tb}: output differs "
                                  f"from the direct route's (phase 5)")
-            want = {"K1": 0, "K5": blocks, "K4": 1 if tb == "device" else 0}
+            want = {"K1": 0, "K5": blocks,
+                    "K4-packed": 1 if tb == "device" else 0}
             check(counts == want, f"strip full width {tb}: launches "
                                   f"{counts}, expected {want}")
             # Each block's K5 runs under the host's copy of the block
@@ -3414,6 +3505,8 @@ def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
     pinned.copy_(words)
     _, d2h_pinned_ms = timed(pinned.copy_, words)
     del words, pinned
+    result["K4-packed"] = phase_packed_walk(walked, walk_lib)
+    del walked
     # Whole blocks of the main path against the plain version.
     err, plain_ms = hold_region("interior block of the full-width -g",
                                 HELD_FULL_INTERIOR, held)
@@ -3453,6 +3546,87 @@ def phase_strip_full_width(fw_out, oracle_score, long_score, single_args,
         f"on the long pair's, all exact; bound {result['K5']['bound_ms']:.4f}"
         f" ms ({result['K5']['bound_by']})")
     return result
+
+
+def phase_packed_walk(walked, walk_lib):
+    """K4-packed (phase 18): the device-mode full-width walk's launch
+    alone (CUDA events, best of 3), its outputs equal to the run's; the
+    run's walk held against the plain version (``walk_packed`` on a CPU
+    copy of the same words) and the plain version timed there; the
+    window-edge set and the refused words exact against the plain version
+    and the wrapper's checks.  Returns the kernels line's row."""
+    check(len(walked) == 1, f"K4-packed: {len(walked)} walks captured")
+    args, kwargs, run_out = walked[0]
+    launch, out = batch_traceback.packed_launch(*args, **kwargs)
+    _, ms = cuda_ms_best(launch)
+    check(all(torch.equal(x, y) for x, y in zip(out, run_out)),
+          "K4-packed: the timed launch differs from the run's walk")
+    words, n, m, bi, bj, local, max_len = args
+    moves = int(out[1][0])
+    row = packed_walk_bound(out[0].cpu().numpy(), moves,
+                            *((bi, bj) if local else (m, n)))
+    shape = (f"one pair's {moves} moves at full width ({m} x {n}, "
+             f"{'local' if local else 'global'}, the strip engine's words)")
+    del out, launch
+    host_words = words.cpu()
+    del words
+    plain, plain_ms = timed(batch_traceback.walk_packed, host_words, n, m,
+                            bi, bj, local, max_len)
+    del host_words
+    err = max_abs_err(run_out, [x.to(run_out[0].device) for x in plain])
+    check(err == 0, f"K4-packed: the full-width walk's max_abs_err {err} "
+                    f"against the plain version")
+    del plain, run_out
+    rows = batch_walk_shapes.check_packed(walk_lib, least_only=True)
+    bad = [r for r in rows if not r[-1]]
+    check(rows and not bad, f"K4-packed window-edge set differs: {bad}")
+    plain_shape = f"the same walk on the CPU ({moves} moves)"
+    log(f"K4-packed walk_packed: {ms:.3f} ms at full width ({moves} moves, "
+        f"{row['words_read']} words read; launch alone, CUDA events, best of "
+        f"3), == the device-mode run's walk; plain {plain_ms:.1f} ms on "
+        f"{plain_shape}, max_abs_err {err}; bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}); window-edge set: {len(rows)} walks and "
+        f"refusals, {sum(r[2] for r in rows)} moves, production and least "
+        f"window, each exact")
+    return row | {"ms": ms, "plain_ms": plain_ms, "err": err, "shape": shape,
+                  "plain_shape": plain_shape}
+
+
+def packed_walk_bound(packed, count, i0, j0):
+    """``bound`` of one single-pair walk of ``count`` moves from (i0, j0):
+    the words its path reads, each once (a path that only goes up and
+    left never returns to a word), its move words written once, and
+    K4_OPS_PER_MOVE a move; with the moves and the words read."""
+    idx = np.arange(count)
+    d = (packed[idx // 16].astype(np.int64) >> (2 * (idx % 16))) & 3
+    up, back = (d == 1) | (d == 2), (d == 0) | (d == 1)
+    i = i0 - np.concatenate([[0], np.cumsum(up)[:-1]])
+    j = j0 - np.concatenate([[0], np.cumsum(back)[:-1]])
+    reads = (i > 0) & (j > 0)
+    key = ((i[reads] - 1) // 16) * (1 << 32) + (j[reads] - 1)
+    words_read = int(len(key) > 0) + int((np.diff(key) != 0).sum())
+    nbytes = 4 * words_read + 4 * -(-count // 16) + 4 * 4 + 3 * 4
+    return bound(nbytes, count * K4_OPS_PER_MOVE) | {
+        "moves": count, "words_read": words_read}
+
+
+@contextlib.contextmanager
+def captured_calls(module, name, store):
+    """Within the block every call of ``module.name`` (a launch builder
+    returning (launch, outputs)) is kept in ``store`` as (args, kwargs,
+    outputs)."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        launch, out = real(*args, **kwargs)
+        store.append((args, kwargs, out))
+        return launch, out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def k5_bound(rows, w, k, with_dirs):
@@ -3495,6 +3669,7 @@ def run(procs):
     # 1. Build: one nvcc per kernel source and g++ for the oracle, at once.
     oracle_lib = in_thread(ensure_built)
     walk_lib = in_thread(walk_shapes.library)
+    batch_walk_lib = in_thread(batch_walk_shapes.library)
     kernels = _build.build_all()
     oracle_lib()
     install_ledger()
@@ -3559,10 +3734,27 @@ def run(procs):
     check(len(k3_lines) == 24 and not spilled,
           f"K3 spills: {spilled or k3_lines or 'no lines'}")
     log(f"K3, K3-cell16: {len(k3_lines)} instances, none spills")
+    # K4's walks keep their state in registers too; its shapes in code are
+    # the ones ops/batch_traceback.py names.
+    k4_lines = [line for line in ptxas_summary(kernels["batch_walk"])
+                if "walk_kernel" in line]
+    spilled = [line for line in k4_lines if "spill stores 0 B" not in line]
+    check(len(k4_lines) == 8 and not spilled,
+          f"K4 spills: {spilled or k4_lines or 'no lines'}")
+    k4_shapes = batch_traceback.library_shapes(_build.library("batch_walk"))
+    want_shapes = {"run": batch_traceback.RUN,
+                   "threads": batch_traceback.BATCH_THREADS,
+                   "window": batch_traceback.PACKED_WINDOW}
+    check(k4_shapes == want_shapes, f"K4's shapes {k4_shapes} differ from "
+                                    f"ops/batch_traceback.py's")
+    log(f"K4: {len(k4_lines)} instances, none spills; shapes as "
+        f"ops/batch_traceback.py names them: {k4_shapes}")
     t1 = time.time()
     walk_lib = walk_lib()
-    log(f"K2's all-shapes build (probes/walk_shapes.py): ready "
-        f"{time.time() - t1:.1f} s after the kernels")
+    batch_walk_lib = batch_walk_lib()
+    log(f"K2's and K4's all-shapes builds (probes/walk_shapes.py, "
+        f"probes/batch_walk_shapes.py): ready {time.time() - t1:.1f} s "
+        f"after the kernels")
 
     # Host work beside the device phases: the oracle's outputs for
     # phase 4, a fresh-process -g run, and the score-only fill for
@@ -3629,7 +3821,7 @@ def run(procs):
     log(f"phase 5 (full width): {time.time() - t0:.1f} s")
 
     t0 = begin_phase("6")
-    batch_errs = phase_batch_kernels()
+    batch_errs = phase_batch_kernels(batch_walk_lib)
     log(f"phase 6 (K3, K4 against their plain versions): "
         f"{time.time() - t0:.1f} s")
     t0 = begin_phase("7")
@@ -3680,12 +3872,12 @@ def run(procs):
         f"launches {json.dumps(strip_counts)}")
     t0 = begin_phase("18")
     sf = phase_strip_full_width(fw["out"], oracle_score, long_score,
-                                single_args)
+                                single_args, batch_walk_lib)
     del single_args
     log(f"phase 18 (the strip engine, full width): "
         f"{time.time() - t0:.1f} s")
     t0 = begin_phase("19")
-    aff_batch_errs = phase_batch_kernels(affine=True)
+    aff_batch_errs = phase_batch_kernels(batch_walk_lib, affine=True)
     log(f"phase 19 (affine K3, K4 against their plain versions): "
         f"{time.time() - t0:.1f} s")
     t0 = begin_phase("20")
@@ -3810,11 +4002,8 @@ def run(procs):
                 f"{100 * row['moves'] * chain_ns / 1e6 / row['ms']:.0f} % "
                 f"and {100 * row['tile_moves'] * chain_ns / 1e6 / row['tile_ms']:.0f}"
                 f" % of it; bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
-    # The batch kernels: linear (phases 6-9; K4 also walks the strip
-    # engine's single pairs, phases 17-18) and affine (phases 19-22).
+    # The batch kernels: linear (phases 6-9) and affine (phases 19-22).
     # Each wrapper counts both instances: a phase's counts are its own.
-    strip_walks = (strip_counts["K4"] + sf["host"]["counts"]["K4"]
-                   + sf["device"]["counts"]["K4"])
     interpair = ("seqalign_torch/csrc/interpair.cu",
                  "seqalign_tpu/ops/pallas_fill.py:222")
     batch_walk = ("seqalign_torch/csrc/batch_walk.cu",
@@ -3825,7 +4014,7 @@ def run(procs):
         ("K3-dirs batch_fill_dirs", interpair, "K3-dirs", aw, batch_counts,
          batch_errs, 0),
         ("K4 batch_walk", batch_walk, "K4", aw, batch_counts, batch_errs,
-         strip_walks),
+         0),
         ("K3-affine-score batch_score (affine)", interpair, "K3-score", asw,
          aff_batch_counts, aff_batch_errs, 0),
         ("K3-affine-dirs batch_fill_dirs (affine, run bits)", interpair,
@@ -3845,6 +4034,38 @@ def run(procs):
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row.get("shape", width.get("shape")),
         })
+        if kid.startswith("K4"):
+            summary[-1].update(floor_ms=row["floor_ms"],
+                               floor_by=row["floor_by"])
+    # K4's single-pair walk: the strip engine's device walks (phases
+    # 17-18); its floor is its moves' chain, a dependent shared-memory
+    # load a move at P1's cost in this run.
+    row = sf["K4-packed"]
+    launched = (strip_counts["K4-packed"] + sf["host"]["counts"]["K4-packed"]
+                + sf["device"]["counts"]["K4-packed"])
+    check(launched >= 1, "K4-packed: no launch on the main path")
+    summary.append({
+        "name": "K4-packed walk_packed (single-pair walk, strip engine)",
+        "route": "cuda", "source": "seqalign_torch/csrc/batch_walk.cu",
+        "replaces": "seqalign_tpu/ops/batch_traceback.py:187",
+        "launches": launched, "max_abs_err": row["err"],
+        "exact": row["err"] == 0, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": row["shape"], "plain_shape": row["plain_shape"],
+        "moves": row["moves"], "chain_ns_per_move": chain_ns,
+        "floor_ms": row["moves"] * chain_ns / 1e6, "floor_by": "chain"})
+    log(f"K4-packed: {row['ms']:.3f} ms for {row['moves']} moves at full "
+        f"width, {row['ms'] * 1e6 / row['moves']:.1f} ns a move; chain floor "
+        f"(a dependent shared-memory load a move, P1 {chain_ns:.1f} ns): "
+        f"{summary[-1]['floor_ms']:.3f} ms, "
+        f"{100 * summary[-1]['floor_ms'] / row['ms']:.0f} % of it")
+    for entry in summary:
+        if entry["name"].split()[0] in ("K4", "K4-affine"):
+            log(f"{entry['name'].split()[0]}: {entry['ms']:.4f} ms a chunk; "
+                f"sector floor {entry['floor_ms']:.4f} ms "
+                f"({100 * entry['floor_ms'] / entry['ms']:.0f} % of it), "
+                f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
     row = sf["K5"]
     err = max(row["err"], k5_err, k5_single_err)
     summary.append({

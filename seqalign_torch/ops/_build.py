@@ -10,8 +10,9 @@ kernel's registers, shared memory and spills to ``<library>.log``.
 Every source includes ``csrc/launch_error.cuh``, so every library
 exports ``sa_error_text``, which ``check_launch`` reads to name a failed
 launch's CUDA error; K1 and K5 include ``csrc/band_stream.cuh``, their
-bands' shared stream helpers, and K3 and K3-cell16
-``csrc/interpair_chain.cuh``, their chain of warps.
+bands' shared stream helpers, K3 and K3-cell16
+``csrc/interpair_chain.cuh``, their chain of warps, and K2 and K4
+``csrc/mbarrier.cuh``, their window walks' barriers.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ KERNELS = ("wavefront", "walk", "interpair", "interpair16", "batch_walk",
            "strip", "probe_dpx16", "probe_chase")
 HEADERS = tuple(os.path.join(CSRC, name)
                 for name in ("launch_error.cuh", "band_stream.cuh",
-                             "interpair_chain.cuh"))
+                             "interpair_chain.cuh", "mbarrier.cuh"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -21,13 +21,29 @@ edge overrides; local stops on STOP only in state H.
 
 ``batch_walk`` launches the CUDA kernel (``csrc/batch_walk.cu``) for
 tensors on a CUDA device and runs ``batch_walk_plain``, the lockstep
-walk of the JAX ``batch_device_traceback``, for tensors on the CPU.
+walk of the JAX ``batch_device_traceback``, for tensors on the CPU.  The
+kernel walks one pair a lane and keeps a run of the next ``RUN`` column
+words of the pair's word row in flight (cp.async copies into shared
+memory), so a walk waits for device memory once a word-row crossing, not
+once a move.  What bounds it then is a warp's own chain of instructions
+an iteration (a lane's move and copy, ≈ 0.3 µs with about 4 warps an
+SM) and the restarts; its floor is the 32-byte sectors its words take
+from device memory (one a word: a pair's words lie tile_pairs x 4 B
+apart).
 
 ``walk_packed`` walks one pair over the strip engine's (W, P) words
-(``strip_fill``, ``tiled_fill``) with the same kernel: one tile of one
-pair, so word (w, p) is read at w * P + p, the K4 address with
-tile_pairs = 1.  The walk's edge overrides and stop rules are those of
-the JAX ``ops/traceback.py::device_traceback``.
+(``strip_fill``, ``tiled_fill``) with the kernel's single-pair entry
+point: one warp walking from a window of ``PACKED_WINDOW`` word rows x
+columns staged in shared memory, which six warps load ahead of the path
+(K2's protocol); in a step each lane reads one of the next 32 columns of
+the cell's word row and the warp makes the LEFT moves at their head at
+once, so a step is one chain of a shared-memory load, a ballot and a
+shuffle for each move that is not LEFT.  Word (w, p) is read at
+w * P + p, the K4 address with tile_pairs = 1; the loaders read 16-byte
+chunks, so on a CUDA device P must be a multiple of 4 and the words
+16-byte aligned (``check_kernel_words``).  The walk's edge
+overrides and stop rules are those of the JAX
+``ops/traceback.py::device_traceback``.
 """
 
 from __future__ import annotations
@@ -36,10 +52,17 @@ import ctypes
 
 import torch
 
-from ._build import check_launch, library
+from ._build import c_function, check_launch, int_function, library
 from .batch_fill import DIR_ROWS_PER_WORD, mode_code
 
 _LEFT, _DIAG, _TOP, _STOP = 0, 1, 2, 3
+
+# csrc/batch_walk.cu's shapes (sa_batch_walk_shape_of): the batch walk's
+# run of column words and most threads a block; the single-pair walk's
+# window, word rows x columns (64 KB a buffer, two buffers).
+RUN = 4
+BATCH_THREADS = 128
+PACKED_WINDOW = (16, 1024)
 
 
 def _check(dirs, ns, ms, bis, bjs, local, semi, max_len, dirs2=None):
@@ -93,16 +116,6 @@ def batch_walk(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
 batch_walk.launches = 0
 
 
-def _kernel():
-    fn = library("batch_walk").sa_batch_walk
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 6 + [ctypes.c_int64, i, i, i, i,
-                                  ctypes.c_int64] + [p] * 5)
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def kernel_launch(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
                   max_len: int, dirs2=None):
     """K4 on the words' CUDA device, ready to launch: the outputs
@@ -120,6 +133,19 @@ def _launcher(dirs, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
     """``kernel_launch`` over words of any tile geometry: dirs (and
     dirs2) hold (B/tile_pairs, num_w, n_cols, tile_pairs) int32 in that
     order."""
+    return shape_launch(library("batch_walk"), None, dirs, num_w, n_cols,
+                        tile_pairs, ns, ms, bis, bjs, local, semi, max_len,
+                        dirs2)
+
+
+def shape_launch(lib, shape, dirs, num_w, n_cols, tile_pairs, ns, ms, bis,
+                 bjs, local, semi, max_len, dirs2=None, trace=None):
+    """``_launcher`` through ``lib``, a build of ``csrc/batch_walk.cu``:
+    ``shape`` None calls ``sa_batch_walk`` (the run ``RUN``); ``shape`` =
+    (run, threads) calls the all-shapes build's ``sa_batch_walk_shape``
+    with that run and block (threads 0: the production rule) and
+    ``trace`` (None, or an int64 tensor of 9 the walk adds to as uint64,
+    entry 6 set to -1)."""
     device = dirs.device
     b = ns.shape[0]
     i32 = torch.int32
@@ -128,22 +154,37 @@ def _launcher(dirs, num_w, n_cols, tile_pairs, ns, ms, bis, bjs, local,
     fi = torch.empty(b, dtype=i32, device=device)
     fj = torch.empty(b, dtype=i32, device=device)
     ns, ms, bis, bjs = (x.contiguous() for x in (ns, ms, bis, bjs))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    head = [p] * 6 + [ctypes.c_int64, i, i, i, i, ctypes.c_int64] + [p] * 4
+    if shape is None:
+        fn = c_function(lib, "sa_batch_walk", head + [p])
+        tail = ()
+    else:
+        fn = c_function(lib, "sa_batch_walk_shape", head + [i, i, p, p])
+        tail = (*shape, None if trace is None else trace.data_ptr())
 
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel()(
+            rc = fn(
                 dirs.data_ptr(),
                 None if dirs2 is None else dirs2.data_ptr(),
                 ns.data_ptr(), ms.data_ptr(),
                 bis.data_ptr(), bjs.data_ptr(), b, num_w, n_cols,
                 tile_pairs, mode_code(local, semi), max_len,
                 packed.data_ptr(), lengths.data_ptr(), fi.data_ptr(),
-                fj.data_ptr(), stream,
+                fj.data_ptr(), *tail, stream,
             )
         check_launch("batch_walk", rc)
 
     return launch, (packed, lengths, fi, fj)
+
+
+def library_shapes(lib) -> dict:
+    """The shapes a build ``lib`` of ``csrc/batch_walk.cu`` fixes: the
+    batch walk's run and most threads, the single-pair walk's window."""
+    fn = int_function(lib, "sa_batch_walk_shape_of", 1)
+    return {"run": fn(0), "threads": fn(1), "window": (fn(2), fn(3))}
 
 
 def batch_walk_plain(dirs, ns, ms, bis, bjs, local: bool, semi: bool,
@@ -228,6 +269,8 @@ def _check_packed(words, n, m, bi, bj, local, max_len):
         raise ValueError(f"walk_packed runs on cuda or cpu, not "
                          f"{words.device}")
     num_w, n_cols = words.shape
+    if words.device.type == "cuda":
+        check_kernel_words(words)
     i0, j0 = (bi, bj) if local else (m, n)
     if not (0 <= i0 <= num_w * DIR_ROWS_PER_WORD and 0 <= j0 <= n_cols):
         raise ValueError(f"start ({i0}, {j0}) lies outside words of "
@@ -238,11 +281,26 @@ def _check_packed(words, n, m, bi, bj, local, max_len):
                          f"got {max_len}")
 
 
+def check_kernel_words(words):
+    """Raise ValueError unless the single-pair walk's kernel can load
+    ``words`` (W, P): its loaders read a window row in 16-byte chunks, so
+    P must be a multiple of 4 and the words 16-byte aligned, as the strip
+    engine's words (P a multiple of 1,024, their own allocation) are.
+    The plain version on the CPU takes any P."""
+    if words.shape[1] % 4:
+        raise ValueError(f"K4's single-pair walk loads 16-byte chunks: P "
+                         f"must be a multiple of 4, got {words.shape[1]}")
+    if words.data_ptr() % 16:
+        raise ValueError("K4's single-pair walk loads 16-byte chunks: the "
+                         "words must be 16-byte aligned")
+
+
 def walk_packed(words, n: int, m: int, bi: int, bj: int, local: bool,
                 max_len: int):
     """Walk one pair over the strip engine's words (W, P) from (m, n)
-    (global) or (bi, bj) (local), with K4 on a CUDA device or its plain
-    version on the CPU; a launch counts in ``batch_walk.launches``.
+    (global) or (bi, bj) (local), with K4's single-pair walk on a CUDA
+    device or its plain version on the CPU; a launch counts in
+    ``walk_packed.launches``.
 
     Returns (packed, stats) on the words' device: packed (max_len/16,)
     int32 moves in walk order, stats (3,) int32 [moves, i, j] with the
@@ -250,15 +308,59 @@ def walk_packed(words, n: int, m: int, bi: int, bj: int, local: bool,
     """
     _check_packed(words, n, m, bi, bj, local, max_len)
     num_w, n_cols = words.shape
-    one = [torch.tensor([x], dtype=torch.int32, device=words.device)
-           for x in (n, m, bi, bj)]
     if words.device.type == "cpu":
+        one = [torch.tensor([x], dtype=torch.int32) for x in (n, m, bi, bj)]
         packed, lengths, i, j = _walk_plain(
             words.reshape(-1), num_w, n_cols, 1, *one, local, False,
             max_len)
+        return packed[:, 0], torch.cat([lengths, i, j])
+    launch, out = packed_launch(words, n, m, bi, bj, local, max_len)
+    launch()
+    walk_packed.launches += 1
+    return out
+
+
+walk_packed.launches = 0
+
+
+def packed_launch(words, n: int, m: int, bi: int, bj: int, local: bool,
+                  max_len: int):
+    """K4's single-pair walk on the words' CUDA device, ready to launch:
+    the move words zeroed.  Returns (launch, (packed, stats)); each
+    ``launch()`` runs the kernel once on the current stream (a second run
+    writes the same words), raising if the launch failed, and counts
+    nothing (``walk_packed`` counts its launches)."""
+    return packed_shape_launch(library("batch_walk"), None, words, n, m,
+                               bi, bj, local, max_len)
+
+
+def packed_shape_launch(lib, window, words, n, m, bi, bj, local, max_len,
+                        trace=None):
+    """``packed_launch`` through ``lib``, a build of
+    ``csrc/batch_walk.cu``: ``window`` None calls ``sa_walk_packed`` (the
+    window ``PACKED_WINDOW``); ``window`` = (rows, columns) calls the
+    all-shapes build's ``sa_walk_packed_shape`` with that window and
+    ``trace`` (None, or an int64 tensor of 11 the walker fills)."""
+    device = words.device
+    num_w, n_cols = words.shape
+    i0, j0 = (bi, bj) if local else (m, n)
+    packed = torch.zeros(max_len // 16, dtype=torch.int32, device=device)
+    stats = torch.empty(3, dtype=torch.int32, device=device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    head = [p, i, i, i, i, i, p, ctypes.c_int64, p]
+    if window is None:
+        fn = c_function(lib, "sa_walk_packed", head + [p])
+        tail = ()
     else:
-        launch, (packed, lengths, i, j) = _launcher(
-            words, num_w, n_cols, 1, *one, local, False, max_len)
-        launch()
-        batch_walk.launches += 1
-    return packed[:, 0], torch.cat([lengths, i, j])
+        fn = c_function(lib, "sa_walk_packed_shape", head + [i, i, p, p])
+        tail = (*window, None if trace is None else trace.data_ptr())
+
+    def launch():
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(words.data_ptr(), num_w, n_cols, int(i0), int(j0),
+                    int(local), packed.data_ptr(), max_len // 16,
+                    stats.data_ptr(), *tail, stream)
+        check_launch("batch_walk", rc)
+
+    return launch, (packed, stats)

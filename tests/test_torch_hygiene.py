@@ -37,6 +37,7 @@ print(json.dumps({
                  batch_fill.batch_score.cell16_launches,
                  batch_fill.batch_fill_dirs.cell16_launches,
                  batch_traceback.batch_walk.launches,
+                 batch_traceback.walk_packed.launches,
                  strip_fill.strip_fill.launches,
                  dpx16.apply.launches, dpx16.rate_launch.launches,
                  walk_costs.chase.launches],
@@ -66,10 +67,11 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.parallel", "seqalign_torch.parallel.batch",
                  "seqalign_torch.ops.strip_fill", "seqalign_torch.ops.tiled",
                  "seqalign_torch.probes", "seqalign_torch.probes.dpx16",
-                 "seqalign_torch.probes.walk_costs"):
+                 "seqalign_torch.probes.walk_costs",
+                 "seqalign_torch.probes.batch_walk_shapes"):
         assert name in got["modules"]
     assert got["foreign"] == []
-    assert got["launches"] == [0] * 11
+    assert got["launches"] == [0] * 12
 
 
 def test_port_sources_name_no_jax():

@@ -326,3 +326,28 @@ def test_walk_packed_checks_its_inputs(change, match):
     args.update(change)
     with pytest.raises(ValueError, match=match):
         batch_traceback.walk_packed(**args)
+
+
+@pytest.mark.parametrize("cols,offset,match", [
+    (1003, 0, "multiple of 4"),
+    (1000, 1, "16-byte aligned"),
+    (1000, 2, "16-byte aligned"),
+    (1024, 0, None),
+    (1004, 4, None),
+], ids=["odd-width", "offset-4B", "offset-8B", "strip-width", "offset-16B"])
+def test_walk_packed_kernel_takes_16_byte_chunks(cols, offset, match):
+    # On a CUDA device the single-pair walk's loaders read 16-byte chunks:
+    # the wrapper refuses a width that is not a multiple of 4 or words off
+    # a 16-byte boundary; the plain version on the CPU walks them all.
+    flat = torch.zeros(16 * cols + offset, dtype=torch.int32)
+    words = flat[offset:].view(16, cols)
+    assert words.data_ptr() % 16 == (4 * offset) % 16  # CPU storage aligned
+    if match is None:
+        batch_traceback.check_kernel_words(words)
+    else:
+        with pytest.raises(ValueError, match=match):
+            batch_traceback.check_kernel_words(words)
+    packed, stats = batch_traceback.walk_packed(words, cols, 16, 0, 0,
+                                                False, 1040)
+    # All LEFT along row 16, then the forced TOP moves of column 0.
+    assert stats.tolist() == [cols + 16, 0, 0]
