@@ -236,7 +236,41 @@ without its last line:
     dependent chain of loads over tables in shared memory (32 KiB, 128
     KiB), L2 (16 MiB) and HBM (1 GiB), each result against its plain
     version, ns a step.
-27. A ``launch_ledger`` JSON line (each kernel row's launches and device
+27. K1's sequence-parallel chunk (score-only with column checkpoints
+    every chunk and a left column; affine with the top row of F and E's
+    left column) against its plain version: at the main path's geometry
+    (rps 16 x 4096 slots, 32,768 columns a chunk) six cases on the long
+    pair's own fills (global interior and last, local first, semi-global
+    last, affine interior and last; the last chunk is 14,910 columns,
+    ending inside the kernel's drain), the chunk's inputs those of
+    ``checkpoint.Tiles``; the other (mode, position) cases at 16 x 1,024
+    slots with 2,048-column chunks; the global and affine interior
+    chunks timed alone beside their bounds.  Then four main-path cases'
+    launch closures (one a mode) on four streams of the card at once, and
+    four K5 regions the same way, 5 runs each with the outputs and the
+    bands' streams poisoned between runs, every output exact.
+28. Sequence parallel on a mesh of one (the default mesh, this card;
+    ``SEQALIGN_SEQUENCE_PARALLEL=1``): ``-g`` on phase 5's pair takes the
+    route (9 chunks of one strip, then the checkpoint engine's
+    traceback), byte-identical to phase 5; K1 = chunks + path tiles.
+29. Sequence parallel on ``cuda:0 x 4`` (the default mesh set so): ``-g``
+    on phase 12's pair, linear and at phase 15's affine costs (4 strips,
+    7 chunks, 10 supersteps), byte-identical to phases 12 and 15; each
+    strip's colvals and boundaries (and E's and F's) equal to the
+    single-card ``checkpointed_fill``'s; walls beside phases 12 and 15.
+30. ``sequence_parallel_fill`` (K5) on ``cuda:0 x 4``: phase 5's pair in
+    8,192-row blocks, each strip of 70,656 columns two regions, score
+    and best cell equal to the oracle's, global and local; then its words
+    on a 4 x 2,048-column x 300-row case equal to the plain version's
+    (the same pipeline on CPU entries).
+31. Data parallel in one process: ``BatchAligner(mesh=...)`` on meshes
+    of 1 and 2 entries of the card, phases 8-9's and 21-22's workloads,
+    every score and alignment equal to those phases'; walls beside them.
+32. Data parallel across processes: two ``python -m
+    seqalign_torch.parallel.worker`` processes share the card over gloo,
+    two entries each; each byte-checks its shard against the oracle,
+    and the all-gathered scores equal one process's.
+33. A ``launch_ledger`` JSON line (each kernel row's launches and device
     ms summed over every launch made under a user entry point, timed
     between CUDA events from phase 2 on, in all and by phase), the
     longest K3 launch of the ragged mixes (phases 7, 20, 24) beside its
@@ -244,13 +278,16 @@ without its last line:
     ``workload_ledger`` line (the same over WORKLOAD_PHASES, one run of
     each workload, the rows in order of their longest launch), a JSON
     line of the kernels (each with its sums as ``main_path_ms`` and
-    ``workload_ms``; K2's rows also with a path tile's time and the chain
-    floor, the moves times P1's shared-memory step of this run; K4's three
-    rows, ``K4 batch_walk``, ``K4-affine`` and ``K4-packed walk_packed``,
-    with their floors: the batch walks' sectors, a 32-byte sector a
-    4-byte read, over the memory rate, the single-pair walk's chain), the
-    card's name and power limit from nvidia-smi,
-    and ``{"ok": true, "device": {...}}``.
+    ``workload_ms``; the ``K1-chunk`` rows are phase 27's; K2's rows
+    also with a path tile's time and the chain floor, the moves times
+    P1's shared-memory step of this run; K4's three rows, ``K4
+    batch_walk``, ``K4-affine`` and ``K4-packed walk_packed``, with their
+    floors: the batch walks' sectors, a 32-byte sector a 4-byte read,
+    over the memory rate, the single-pair walk's chain), a ``mesh`` line
+    (phases 27-32's walls beside the single-card routes'; the mesh
+    repeats one card, so they measure the pipeline's overhead, not
+    scaling), the card's name and power limit from nvidia-smi, and
+    ``{"ok": true, "device": {...}}``.
 
 The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18 and 20-22
 (and 24, which reuses 7-9's and 20-22's) runs in subprocesses and threads
@@ -261,11 +298,13 @@ A host without a CUDA device fails at once and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import inspect
 import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -274,7 +313,7 @@ import time
 import numpy as np
 import torch
 
-from seqalign_torch import cli, pretty
+from seqalign_torch import cli, config, pretty
 from seqalign_torch.io import parse_score_matrix_file
 from seqalign_torch.native import bindings
 from seqalign_torch.native.build import ensure_built
@@ -282,6 +321,8 @@ from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
                                 checkpoint, direct, layout, strip_fill, tiled,
                                 walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
+from seqalign_torch.parallel import mesh as mesh_lib
+from seqalign_torch.parallel import sequence, worker
 from seqalign_torch.probes import (batch_walk_shapes, dpx16, walk_costs,
                                    walk_shapes)
 from seqalign_torch.types import Request
@@ -611,6 +652,7 @@ ENTRY_POINTS = (
     (os.path.join("seqalign_torch", "ops", "tiled.py"), "tiled_fill_score"),
     (os.path.join("seqalign_torch", "ops", "checkpoint.py"),
      "checkpointed_align"),
+    (os.path.join("seqalign_torch", "parallel", "sequence.py"), None),
 )
 
 
@@ -637,7 +679,8 @@ def ledger_row(kernel, a):
     """The kernels line's row of a launch, from kernel_launch's (or K4's
     _launcher's) bound arguments ``a``."""
     if kernel == "K1":
-        kind = ("-ckpt" if a["ckpt_every"] else
+        kind = ("-chunk" if a["ckpt_every"] and a["left_in"] is not None
+                else "-ckpt" if a["ckpt_every"] else
                 "-tile" if a["left_in"] is not None else "")
         return "K1" + ("-affine" if a["affine"] else "") + kind
     if kernel == "K2":
@@ -2450,8 +2493,8 @@ def phase_long_pair(oracle_score, device="cuda"):
     real_cells = rows * n
     tile_cells = min(rows, m - b * rows) * min(cols, n - c * cols)
     return {
-        "wall_s": wall, "phase1_s": seen["phase1_s"],
-        "phase2_s": seen["phase2_s"], "strips": strips,
+        "out": out, "wall_s": wall, "phase1_s": seen["phase1_s"],
+        "phase2_s": seen["phase2_s"], "strips": strips, "strip_steps": steps,
         "tiles": tiles_crossed, "peak_bytes": peak, "counts": counts,
         "tile_host_ms": host_ms, "readback_ms": readback_ms,
         "phase2_rest_ms": phase2_rest_ms, "k2_tile_ms": walk_ms,
@@ -2767,7 +2810,7 @@ def affine_cli_run(argv, oracle_score):
     check(score == expected == rescored,
           f"affine {argv}: -g Score {score}, oracle {expected}, rescored "
           f"{rescored}")
-    return wall, counts, peak, score, len(aligned_text), request
+    return wall, counts, peak, score, len(aligned_text), request, out
 
 
 def phase_affine_full_width(direct_score, long_score, device="cuda"):
@@ -2775,7 +2818,7 @@ def phase_affine_full_width(direct_score, long_score, device="cuda"):
     the checkpoint engine, then each affine kernel's launch alone timed at
     its full-width shape."""
     # The direct route: two word planes of the 280,482 x 48,632 pair.
-    wall, counts, peak, score, columns, request = affine_cli_run(
+    wall, counts, peak, score, columns, request, out = affine_cli_run(
         FULL_WIDTH, direct_score)
     text = np.asarray(request.text, dtype=np.int32)
     pattern = np.asarray(request.pattern, dtype=np.int32)
@@ -2842,7 +2885,7 @@ def phase_affine_full_width(direct_score, long_score, device="cuda"):
     checkpoint.checkpointed_fill = fill
     checkpoint.checkpointed_traceback = traceback
     try:
-        wall, counts, peak, score, columns, request = affine_cli_run(
+        wall, counts, peak, score, columns, request, out = affine_cli_run(
             LONG_PAIR, long_score)
     finally:
         checkpoint.checkpointed_fill = real_fill
@@ -2865,7 +2908,8 @@ def phase_affine_full_width(direct_score, long_score, device="cuda"):
         f"{score} == oracle score-only fill == rescored alignment of "
         f"{columns} columns; launches {counts}; max_memory_allocated {peak} "
         f"B")
-    result.update(long_wall_s=wall, long_phase1_s=seen["phase1_s"],
+    result.update(long_out=out, long_wall_s=wall,
+                  long_phase1_s=seen["phase1_s"],
                   long_phase2_s=seen["phase2_s"], long_strips=strips,
                   long_tiles=tiles_crossed, long_peak_bytes=peak,
                   long_counts=counts)
@@ -3652,6 +3696,519 @@ def bound(nbytes, ops, packed=False):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+# The sequence-parallel chunk (K1 score-only with column checkpoints and
+# a left column, phase 27): (mode, position) cases held against the plain
+# version at the main path's geometry, one a mode, on the long pair's own
+# fills; and the other cases at 16 x 1,024 slots, 2,048-column chunks,
+# on a CHUNK_CUT_PAIR (n, m) pair of random DNA: 4 chunks (the last 700
+# columns) by 2 strips.
+CHUNK_FULL_CASES = (("global", "interior"), ("local", "first"),
+                    ("semi", "last"), ("affine", "interior"),
+                    ("global", "last"), ("affine", "last"))
+# The cases run on four streams of the card at once: one a mode.
+CHUNK_STREAM_CASES = CHUNK_FULL_CASES[:4]
+CHUNK_CUT_GEOMETRY = dict(rps=16, slots=1024, ckpt_cols=2048)
+CHUNK_CUT_PAIR = (3 * 2048 + 700, 16384 + 3000)
+CHUNK_CUT_CASES = (("global", "first"), ("global", "last"),
+                   ("local", "interior"), ("local", "last"),
+                   ("semi", "first"), ("semi", "interior"),
+                   ("affine", "first"), ("affine", "last"))
+# The mesh of phases 27, 29 and 30: four entries, one card.
+MESH_ENTRIES = 4
+# K5 regions run at once on the mesh streams (phase 27): columns, rows.
+K5_STREAM_REGION = (32768, 2048)
+# sequence_parallel_fill's row blocks at full width (phase 30), and its
+# words held against the plain version: n, m (4 strips of 2,048 columns,
+# 3 blocks of 128 rows).
+STRIP_PIPE_ROWS = 8192
+STRIP_PIPE_WORDS = (8000, 300)
+# The data-parallel BatchAligner (phase 31): mesh sizes.
+BATCH_MESHES = (1, 2)
+# The worker processes of phase 32 and each one's pairs.
+WORKERS = 2
+WORKER_PAIRS = 256
+
+
+# The affine chunks' costs (open, extend): phase 15's.
+CHUNK_AFFINE = (8, 2)
+
+
+def chunk_fill_modes(mode, gap):
+    """(keywords of checkpointed_fill, gap) of a chunk case's mode."""
+    if mode == "affine":
+        return dict(gap_extend=CHUNK_AFFINE[1]), CHUNK_AFFINE[0]
+    return dict(MODES[mode]), gap
+
+
+def chunk_position(position, chunks):
+    """(strip, chunk) of a case: the first chunk of strip 0, an interior
+    chunk of strip 1, or strip 1's last chunk (short)."""
+    return {"first": (0, 0), "interior": (1, min(3, chunks - 2)),
+            "last": (1, chunks - 1)}[position]
+
+
+def chunk_case(ck, tiles, b, c):
+    """``wavefront_strip``'s (args, kwargs) of the sequence-parallel
+    chunk (strip b, chunk c) of the fill ``ck``: the path tile's inputs
+    (``Tiles.strip_args``: the top row, the left column with its corner,
+    affine their F and E) score-only with column checkpoints every chunk,
+    n the chunk's own columns and m the pair's rows."""
+    args, kwargs = tiles.strip_args(b, c)
+    n_eff = min(max(ck.n - c * ck.ckpt_cols, 0), ck.ckpt_cols)
+    kwargs.update(with_dirs=False, ckpt_every=ck.ckpt_cols, semi=ck.semi)
+    return args[:5] + (n_eff, ck.m) + args[7:], kwargs
+
+
+def chunk_launch(args, kwargs):
+    """K1's launch closure and outputs on a chunk case."""
+    return wavefront.kernel_launch(
+        *args, kwargs["local"], kwargs["rps"], kwargs["ckpt_every"],
+        kwargs["slots"], kwargs["semi"], kwargs["left_in"],
+        affine=kwargs.get("affine", False), ext=kwargs.get("ext", 0),
+        fbot_in=kwargs.get("fbot_in"), left_e=kwargs.get("left_e"))
+
+
+def chunk_bound(args, kwargs, k):
+    """The least time of a chunk case: bytes as ``strip_bytes`` (affine:
+    the F rows in and out, E's left column and checkpoints besides) or
+    its cells' operations (the chunk's own columns of its real rows)."""
+    rps, slots = kwargs["rps"], kwargs["slots"]
+    rows, steps = rps * slots, args[0].numel()
+    n_eff, m, i0 = args[5], args[6], args[7]
+    cells = max(0, min(rows, m - i0)) * n_eff
+    ckpts = wavefront.num_checkpoints(steps, kwargs["ckpt_every"])
+    if kwargs.get("affine"):
+        return bound(strip_bytes(steps, rps, slots, k, 2 * ckpts, left=True)
+                     + 8 * steps + 4 * (rows + slots),
+                     cells * K1_AFFINE_SCORE_OPS_PER_CELL)
+    return bound(strip_bytes(steps, rps, slots, k, ckpts, left=True),
+                 cells * K1_SCORE_OPS_PER_CELL)
+
+
+def chunk_cases(text, pattern, sm, k, gap, cases, geometry, device):
+    """{(mode, position): (args, kwargs)} of ``cases`` on the fills of
+    (text, pattern) at ``geometry`` (None: the default one)."""
+    out = {}
+    for mode in dict.fromkeys(mode for mode, _ in cases):
+        kw, g = chunk_fill_modes(mode, gap)
+        ck = checkpoint.checkpointed_fill(text, pattern, sm, k, g,
+                                          device=device, **kw,
+                                          **(geometry or {}))
+        tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
+        chunks = -(-ck.n // ck.ckpt_cols)
+        for m_, position in cases:
+            if m_ == mode:
+                out[mode, position] = chunk_case(
+                    ck, tiles, *chunk_position(position, chunks))
+    return out
+
+
+def concurrent_runs(what, cases, kernel, times=REPEATS):
+    """``cases`` [(launch, out, want)]: each launch closure on a stream of
+    its own, all queued at once, ``times`` times, each output bitwise
+    equal to ``want`` (the plain version's); before each run the outputs
+    but the checkpoints are poisoned, and after the first the values of
+    the bands' streams.  Returns (the last run's wall between its first
+    start and last stop, the launches' times alone summed), in ms."""
+    streams = [torch.cuda.Stream() for _ in cases]
+    counters = (wavefront.SCRATCH_COUNTERS if kernel == "K1"
+                else strip_fill.SCRATCH_COUNTERS) // 2
+    for r in range(times):
+        events = []
+        for launch, out, _ in cases:
+            for i, x in enumerate(out):
+                if x is not None and not (kernel == "K1" and i in (5, 8)):
+                    x.fill_(-12345)
+            if r:
+                launch.scratch[counters:].bitwise_xor_(0x5A5A5)
+        for stream, (launch, _, _) in zip(streams, cases):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                launch()
+                stop.record()
+                events.append((start, stop))
+        torch.cuda.synchronize()
+        for i, (_, out, want) in enumerate(cases):
+            err = max_abs_err(out, want)
+            check(err == 0, f"{what}: run {r + 1} of {times}, stream {i}: "
+                            f"max_abs_err {err}")
+    wall = max(events[0][0].elapsed_time(stop) for _, stop in events)
+    alone = sum(cuda_ms(launch)[1] for launch, _, _ in cases)
+    sms = [len(set(_build.launch_sms(launch))) for launch, _, _ in cases]
+    log(f"{what}: {len(cases)} launches on {len(cases)} streams at once, "
+        f"{times} runs, each output exact; the last run's wall "
+        f"{wall:.3f} ms, the launches alone {alone:.3f} ms summed; SMs of "
+        f"each launch {sms}")
+    return wall, alone
+
+
+def phase_mesh_kernels(device="cuda"):
+    """Phase 27: K1's sequence-parallel chunk against its plain version,
+    then K1 and K5 on four streams of the card at once."""
+    request = read_request(["-g", *LONG_PAIR])
+    text = np.asarray(request.text, dtype=np.int32)
+    pattern = np.asarray(request.pattern, dtype=np.int32)
+    k, gap = request.alphabet_size, request.gap_penalty
+    sm = layout.pack_score_matrix(request.score_matrix, k)
+    full = chunk_cases(text, pattern, sm, k, gap, CHUNK_FULL_CASES, None,
+                       device)
+    rng = np.random.default_rng(27)
+    n, m = CHUNK_CUT_PAIR
+    cut = chunk_cases(rng.integers(0, 4, n).astype(np.int32),
+                      rng.integers(0, 4, m).astype(np.int32),
+                      score_matrix(4), 4, 5, CHUNK_CUT_CASES,
+                      CHUNK_CUT_GEOMETRY, device)
+    rows = {}
+    held = []
+    for where, cases in (("main path's geometry", full),
+                         ("16 x 1,024 slots", cut)):
+        for (mode, position), (args, kwargs) in cases.items():
+            launch, out = chunk_launch(args, kwargs)
+            launch()
+            plain, plain_ms = timed(wavefront.wavefront_strip_plain, *args,
+                                    **kwargs)
+            err = max_abs_err(out, plain)
+            what = (f"K1 chunk {mode} {position} ({where}, n {args[5]}, "
+                    f"strip at row {args[7]})")
+            check(err == 0, f"{what}: max_abs_err {err}")
+            if cases is full and (mode, position) in CHUNK_STREAM_CASES:
+                held.append((launch, out, plain))
+            kid = "K1-affine-chunk" if mode == "affine" else "K1-chunk"
+            if cases is full and position == "interior":
+                _, ms = cuda_ms_best(launch)
+                steps = args[0].numel()
+                steps = args[0].numel()
+                chunk_steps = steps
+                rows[kid] = chunk_bound(args, kwargs, k) | {
+                    "ms": ms, "plain_ms": plain_ms, "err": err,
+                    "shape": f"an interior chunk of {kwargs['rps']} x "
+                             f"{kwargs['slots']} slots x {steps} steps, "
+                             f"{args[5]} columns its own, of "
+                             f"{len(pattern)} x {len(text)}, "
+                             + (f"open {CHUNK_AFFINE[0]} extend "
+                                f"{CHUNK_AFFINE[1]}" if mode == "affine"
+                                else "global")}
+                log(f"{what}: {ms:.3f} ms (its launch alone, CUDA events, "
+                    f"best of 3), bound {rows[kid]['bound_ms']:.4f} ms "
+                    f"({rows[kid]['bound_by']}); plain {plain_ms:.0f} ms; "
+                    f"exact")
+            else:
+                log(f"{what}: exact against the plain version "
+                    f"({plain_ms:.0f} ms)")
+    del full, cut
+    k1_wall, k1_alone = concurrent_runs(
+        "K1 chunks (the four main-path-geometry cases)", held, "K1")
+    del held
+    k5 = []
+    for local in (False, True):
+        for with_dirs in (True, False):
+            gap5, n5, m5, row_base, strip_off, inputs = strip_interior(
+                rng, 4, *K5_STREAM_REGION, local, device)
+            full5 = (*inputs[:3], gap5, n5, m5, row_base, strip_off,
+                     *inputs[3:])
+            want = strip_fill.strip_fill_plain(*full5, local=local,
+                                               with_dirs=with_dirs)
+            launch, out = strip_fill.kernel_launch(*full5, local, with_dirs)
+            k5.append((launch, out, want))
+    k5_wall, k5_alone = concurrent_runs(
+        f"K5 interior regions of {K5_STREAM_REGION[1]} x "
+        f"{K5_STREAM_REGION[0]} (global and local, words and score-only)",
+        k5, "K5")
+    return rows | {"chunk_steps": chunk_steps,
+                   "k1_streams_ms": k1_wall, "k1_alone_ms": k1_alone,
+                   "k5_streams_ms": k5_wall, "k5_alone_ms": k5_alone}
+
+
+@contextlib.contextmanager
+def default_mesh(devices):
+    """``config.mesh_devices`` giving ``devices`` within the block: the
+    default mesh of ``-g``'s long-pair route."""
+    real = config.mesh_devices
+    config.mesh_devices = lambda default=None: list(devices)
+    try:
+        yield
+    finally:
+        config.mesh_devices = real
+
+
+@contextlib.contextmanager
+def sequence_fill_spy(seen):
+    """``sequence_parallel_checkpointed_fill`` (which the route imports
+    at each call) counted in ``seen["calls"]`` within the block, its fill
+    returned in ``seen["ck"]`` and timed, to its last kernel, in
+    ``seen["fill_s"]``."""
+    real = sequence.sequence_parallel_checkpointed_fill
+    seen["calls"] = 0
+
+    def fill(*args, **kwargs):
+        seen["calls"] += 1
+        t0 = time.time()
+        seen["ck"] = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["fill_s"] = time.time() - t0
+        return seen["ck"]
+
+    sequence.sequence_parallel_checkpointed_fill = fill
+    try:
+        yield
+    finally:
+        sequence.sequence_parallel_checkpointed_fill = real
+
+
+def phase_seqpar_one(fw):
+    """Phase 28: -g on the full-width pair through the sequence-parallel
+    route on the default mesh (this card), byte-identical to phase 5."""
+    reset_launches()
+    seen = {}
+    check(config.mesh_devices() == ["cuda:0"],
+          f"the default mesh is {config.mesh_devices()}, not one card")
+    with environment(SEQALIGN_SEQUENCE_PARALLEL="1"), \
+            sequence_fill_spy(seen), plain_versions_forbidden(PAIR_PLAIN):
+        t0 = time.time()
+        rc, out = run_cli(["-g", *FULL_WIDTH])
+        wall = time.time() - t0
+    counts = launches()
+    request = read_request(FULL_WIDTH)
+    chunks = -(-len(request.text) // checkpoint.DEFAULT_CKPT_COLS)
+    check(rc == 0 and out == fw["out"],
+          "full width through the sequence-parallel route: not phase 5's "
+          "bytes")
+    check(seen["calls"] == 1 and counts["K2"] >= 1
+          and counts["K1"] == chunks + counts["K2"],
+          f"full width, sequence parallel: launches {counts}, {chunks} "
+          f"chunks")
+    log(f"full width -g, sequence-parallel route on a mesh of 1 "
+        f"({chunks} chunks of one strip): wall {wall:.2f} s (phase 5, the "
+        f"direct route: {fw['wall_s']:.2f} s), byte-identical to phase 5; "
+        f"launches {counts}")
+    return {"wall_s": wall, "counts": counts, "chunks": chunks}
+
+
+def phase_seqpar_mesh(lp, af, device="cuda"):
+    """Phase 29: the long pair through the sequence-parallel route on
+    ``["cuda:0"] * 4``, linear and affine, byte-identical to phases 12 and
+    15; each strip's boundaries those of the single-card fill."""
+    result = {}
+    for name, costs, ref in (("linear", None, lp),
+                             ("affine", CHUNK_AFFINE, af)):
+        argv = LONG_PAIR if costs is None else [*DNA_AFFINE, *LONG_PAIR]
+        ref_out = ref["out"] if costs is None else ref["long_out"]
+        ref_wall = ref["wall_s"] if costs is None else ref["long_wall_s"]
+        request = read_request(["-g", *argv])
+        text = np.asarray(request.text, dtype=np.int32)
+        pattern = np.asarray(request.pattern, dtype=np.int32)
+        n, m, k = len(text), len(pattern), request.alphabet_size
+        sm = layout.pack_score_matrix(request.score_matrix, k)
+        seen = {}
+        real_traceback = checkpoint.checkpointed_traceback
+
+        def traceback(*args, **kwargs):
+            t0 = time.time()
+            out = real_traceback(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen["traceback_s"] = time.time() - t0
+            return out
+
+        reset_launches()
+        checkpoint.checkpointed_traceback = traceback
+        try:
+            with environment(SEQALIGN_SEQUENCE_PARALLEL="1"), \
+                    default_mesh(["cuda:0"] * MESH_ENTRIES), \
+                    sequence_fill_spy(seen), \
+                    plain_versions_forbidden(PAIR_PLAIN):
+                t0 = time.time()
+                rc, out = run_cli(["-g", *argv])
+                wall = time.time() - t0
+        finally:
+            checkpoint.checkpointed_traceback = real_traceback
+        counts = launches()
+        ck = seen.pop("ck")
+        strips, cols = len(ck.colvals), ck.ckpt_cols
+        chunks = -(-n // cols)
+        check(rc == 0 and out == ref_out,
+              f"{name} long pair on the mesh: not the bytes of phase "
+              f"{12 if costs is None else 15}")
+        check(seen["calls"] == 1 and counts["K2"] >= 1
+              and counts["K1"] == strips * chunks + counts["K2"],
+              f"{name} long pair on the mesh: launches {counts}")
+        kw = {} if costs is None else dict(gap_extend=costs[1])
+        single = checkpoint.checkpointed_fill(text, pattern, sm, k,
+                                              request.gap_penalty,
+                                              device=device, **kw)
+        whole = n // cols
+        pairs = [("colvals", "boundaries")] + (
+            [("colvals_e", "boundaries_f")] if costs else [])
+        for cname, bname in pairs:
+            for b in range(strips):
+                check(torch.equal(getattr(ck, cname)[b][:whole],
+                                  getattr(single, cname)[b][:whole])
+                      and torch.equal(getattr(ck, bname)[b][:n],
+                                      getattr(single, bname)[b][:n]),
+                      f"{name} long pair: strip {b}'s {cname}/{bname} "
+                      f"differ from the single-card fill")
+        check((ck.score, ck.best_i, ck.best_j)
+              == (single.score, single.best_i, single.best_j),
+              f"{name} long pair: best cell differs from the single card")
+        del single, ck
+        log(f"{name} long pair {m} x {n} on the mesh cuda:0 x "
+            f"{MESH_ENTRIES} ({strips} strips, {chunks} chunks, "
+            f"{strips + chunks - 1} supersteps): -g wall {wall:.2f} s "
+            f"(phase {12 if costs is None else 15}, the checkpoint engine "
+            f"on one card: {ref_wall:.2f} s), fill {seen['fill_s']:.2f} s, "
+            f"traceback {seen['traceback_s']:.2f} s; byte-identical to "
+            f"phase {12 if costs is None else 15}; each strip's colvals "
+            f"and boundaries equal the single-card fill's; launches "
+            f"{counts}")
+        result[name] = {"wall_s": wall, "fill_s": seen["fill_s"],
+                        "traceback_s": seen["traceback_s"],
+                        "counts": counts, "chunks": strips * chunks,
+                        "ref_wall_s": ref_wall}
+    return result
+
+
+def phase_strip_pipeline(oracle_score, local_best, device="cuda"):
+    """Phase 30: sequence_parallel_fill (K5) on ``["cuda:0"] * 4``: the
+    full-width pair's score and best cell against the oracle, global and
+    local; its words on a small pair against the plain version's (the
+    same pipeline on CPU entries)."""
+    request = read_request(FULL_WIDTH)
+    text = np.asarray(request.text, dtype=np.int32)
+    pattern = np.asarray(request.pattern, dtype=np.int32)
+    n, m, k, gap = len(text), len(pattern), request.alphabet_size, \
+        request.gap_penalty
+    sm = layout.pack_score_matrix(request.score_matrix, k)
+    mesh = mesh_lib.DataMesh([device] * MESH_ENTRIES)
+    result = {}
+    for local in (False, True):
+        strip_fill.strip_fill.launches = 0
+        with plain_versions_forbidden(STRIP_PLAIN):
+            (score, bi, bj, _), ms = timed(
+                sequence.sequence_parallel_fill, text, pattern, sm, k, gap,
+                local=local, mesh=mesh, block_rows=STRIP_PIPE_ROWS)
+        count = strip_fill.strip_fill.launches
+        if local:
+            best, flat = local_best()
+            want = (best, flat // (n + 1), flat % (n + 1))
+        else:
+            want = (oracle_score(), m, n)
+        check((score, bi, bj) == want,
+              f"sequence_parallel_fill {'local' if local else 'global'}: "
+              f"{(score, bi, bj)} != the oracle's {want}")
+        mode = "local" if local else "global"
+        log(f"sequence_parallel_fill {mode} at full width on cuda:0 x "
+            f"{MESH_ENTRIES} ({STRIP_PIPE_ROWS}-row blocks): wall "
+            f"{ms:.1f} ms, {count} K5 launches; score and best cell == the "
+            f"oracle's")
+        result[mode] = {"wall_ms": ms, "launches": count}
+    rng = np.random.default_rng(30)
+    n, m = STRIP_PIPE_WORDS
+    text = rng.integers(0, 4, n).astype(np.int32)
+    pattern = rng.integers(0, 4, m).astype(np.int32)
+    for local in (False, True):
+        got = sequence.sequence_parallel_fill(text, pattern, DNA_5_4, 4, 5,
+                                              local=local, with_dirs=True,
+                                              mesh=mesh)
+        want = sequence.sequence_parallel_fill(
+            text, pattern, DNA_5_4, 4, 5, local=local, with_dirs=True,
+            mesh=mesh_lib.DataMesh(["cpu"] * MESH_ENTRIES))
+        mode = "local" if local else "global"
+        check(got[:3] == want[:3] and np.array_equal(got[3], want[3]),
+              f"sequence_parallel_fill words ({mode}): the card's differ "
+              f"from the plain version's")
+    log(f"sequence_parallel_fill with words, {m} x {n} on "
+        f"{MESH_ENTRIES} x 2,048 columns: words, score and best cell equal "
+        f"the plain version's, global and local")
+    return result
+
+
+def phase_batch_mesh(score_data, align_data, runs, device="cuda"):
+    """Phase 31: BatchAligner(mesh=...) on meshes of 1 and 2 entries of
+    the card: phases 8-9's and 21-22's workloads, every score and
+    alignment equal to those phases' results."""
+    texts_s, patterns_s, _ = score_data
+    texts_a, patterns_a, _ = align_data
+    result = {}
+    for k in BATCH_MESHES:
+        mesh = mesh_lib.DataMesh([device] * k)
+        for costs, (sw_ref, aw_ref) in ((None, runs[0]),
+                                        (BATCH_AFFINE, runs[1])):
+            gap, ext = costs or (5, None)
+            aligner = BatchAligner(DNA_5_4, 4, gap, local=True,
+                                   gap_extend=ext, mesh=mesh)
+            tile, chunk = aligner._dirs_tile_pairs(ALIGN_WIDTH[1],
+                                                   ALIGN_WIDTH[1], k)
+            chunks = -(-ALIGN_WIDTH[0] // chunk)
+            reset_batch_launches()
+            with plain_versions_forbidden(), environment(
+                    SEQALIGN_INT16_CELLS="0"):
+                scores, score_ms = timed(aligner.score, list(texts_s),
+                                         list(patterns_s))
+                results, align_ms = timed(aligner.align, texts_a,
+                                          patterns_a)
+            counts = batch_launches()
+            what = (f"BatchAligner on cuda:0 x {k}"
+                    + (f", open {gap} extend {ext}" if ext else ""))
+            check(np.array_equal(scores, sw_ref["scores"]),
+                  f"{what}: scores differ from phase {21 if ext else 8}")
+            bad = [i for i, (r, w) in enumerate(zip(results,
+                                                    aw_ref["results"]))
+                   if not same_alignment(r, (w.aligned_text,
+                                             w.aligned_pattern,
+                                             w.start_in_aligned_text,
+                                             w.start_in_aligned_pattern,
+                                             w.score))]
+            check(not bad, f"{what}: pairs {bad[:10]} differ from phase "
+                           f"{22 if ext else 9}")
+            check(counts["K3-score"] == k
+                  and counts["K3-dirs"] == counts["K4"] == chunks * k,
+                  f"{what}: launches {counts}, {chunks} chunks")
+            log(f"{what}: .score {score_ms:.1f} ms (phase "
+                f"{21 if ext else 8}: {sw_ref['wall_ms']:.1f} ms), .align "
+                f"{align_ms:.1f} ms (phase {22 if ext else 9}: "
+                f"{aw_ref['wall_ms']:.1f} ms); every score and alignment "
+                f"equal to those phases'; launches {counts}")
+            result[f"{k}{'-affine' if ext else ''}"] = {
+                "score_wall_ms": score_ms, "align_wall_ms": align_ms,
+                "counts": counts}
+    return result
+
+
+def phase_batch_processes(procs):
+    """Phase 32: WORKERS processes of ``seqalign_torch.parallel.worker``
+    sharing the card over gloo, two mesh entries each; each byte-checks
+    its shard, and the all-gathered scores equal one process's."""
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    waits = [procs.start([sys.executable, "-m",
+                          "seqalign_torch.parallel.worker", str(rank),
+                          str(WORKERS), str(port), "2", str(WORKER_PAIRS),
+                          "--device", "cuda"])
+             for rank in range(WORKERS)]
+    outs = [wait() for wait in waits]
+    wall = time.time() - t0
+    texts, patterns = worker.batch(WORKERS * WORKER_PAIRS)
+    scores = BatchAligner(worker.SM, 4, worker.GAP, local=True).score(
+        list(texts), list(patterns))
+    digest = hashlib.sha1(scores.astype(np.int32).tobytes()).hexdigest()
+    for rank, (rc, out, err) in enumerate(outs):
+        line = [x for x in out.splitlines() if x.startswith("OK ")]
+        check(rc == 0 and len(line) == 1,
+              f"worker {rank}: rc {rc}\n{out}\n{err[-3000:]}")
+        fields = line[0].split()
+        check(fields[1:3] == [str(rank), str(WORKER_PAIRS)]
+              and fields[5] == f"scores={digest}",
+              f"worker {rank}: {line[0]} (one process: scores={digest})")
+        log(f"worker {rank} of {WORKERS}: {line[0]}")
+    log(f"{WORKERS} worker processes on the card over gloo: wall "
+        f"{wall:.1f} s; the all-gathered scores equal one process's")
+    return {"wall_s": wall}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3770,6 +4327,12 @@ def run(procs):
             0, full.text, full.pattern,
             layout.pack_score_matrix(full.score_matrix, full.alphabet_size),
             full.alphabet_size, full.gap_penalty, full.gap_penalty)[0])
+    # Its local best cell, for phase 30.
+    local_best = in_thread(
+        lambda: bindings.oracle_fill_affine(
+            1, full.text, full.pattern,
+            layout.pack_score_matrix(full.score_matrix, full.alphabet_size),
+            full.alphabet_size, full.gap_penalty, full.gap_penalty))
     # The batch phases' inputs, and their oracle results in threads.
     cases = {(k, mode): batch_mix(k, 90 + k)
              for k in (4, 23) for mode in MODES}
@@ -3921,26 +4484,57 @@ def run(procs):
     p1_row = phase_chase()
     log(f"phase 26 (P1, the dependent chain of loads): "
         f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("27")
+    mk = phase_mesh_kernels()
+    log(f"phase 27 (K1's sequence-parallel chunk against its plain "
+        f"version; K1 and K5 on four streams at once): "
+        f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("28")
+    sp1 = phase_seqpar_one(fw)
+    log(f"phase 28 (sequence parallel, a mesh of 1): "
+        f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("29")
+    sp4 = phase_seqpar_mesh(lp, af)
+    log(f"phase 29 (sequence parallel, cuda:0 x {MESH_ENTRIES}): "
+        f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("30")
+    spf = phase_strip_pipeline(oracle_score, local_best)
+    log(f"phase 30 (K5 pipeline, cuda:0 x {MESH_ENTRIES}): "
+        f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("31")
+    bm = phase_batch_mesh(score_data, align_data, ((sw, aw), (asw, aaw)))
+    log(f"phase 31 (data parallel in one process): "
+        f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("32")
+    bp = phase_batch_processes(procs)
+    log(f"phase 32 (data parallel across {WORKERS} processes): "
+        f"{time.time() - t0:.1f} s")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
     # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint
     # variants: a phase-1 strip per strip, a tile per path tile (11-12).
-    tiles = ck_counts["K2"] + lp["counts"]["K2"]
+    # The sequence-parallel route (phases 28-29): K1 = chunks + path
+    # tiles, K2 = path tiles.
+    ck_tiles = ck_counts["K2"] + lp["counts"]["K2"]
+    sp_tiles = sp1["counts"]["K2"] + sp4["linear"]["counts"]["K2"]
     pair_launches = {
         "K1": (by_route["wavefront"]["K1"] + by_route["direct"]["K1"]
                + fw["counts"]["K1"]),
         "K2": (by_route["wavefront"]["K2"] + by_route["direct"]["K2"]
-               + fw["counts"]["K2"] + tiles),
-        "K1-ckpt": ck_counts["K1"] + lp["counts"]["K1"] - tiles,
-        "K1-tile": tiles,
+               + fw["counts"]["K2"] + ck_tiles + sp_tiles),
+        "K1-ckpt": ck_counts["K1"] + lp["counts"]["K1"] - ck_tiles,
+        "K1-tile": ck_tiles + sp_tiles,
+        "K1-chunk": sp1["chunks"] + sp4["linear"]["chunks"],
     }
     aff_tiles = aff_ck["K2"] + af["long_counts"]["K2"]
+    sp_aff_tiles = sp4["affine"]["counts"]["K2"]
     pair_launches.update({
         "K1-affine": aff_direct["K1"] + af["direct_counts"]["K1"],
         "K2-affine": (aff_direct["K2"] + af["direct_counts"]["K2"]
-                      + aff_tiles),
+                      + aff_tiles + sp_aff_tiles),
         "K1-affine-ckpt": aff_ck["K1"] + af["long_counts"]["K1"] - aff_tiles,
-        "K1-affine-tile": aff_tiles,
+        "K1-affine-tile": aff_tiles + sp_aff_tiles,
+        "K1-affine-chunk": sp4["affine"]["chunks"],
     })
     # K2's chain floor: its moves, each one dependent load from shared
     # memory at P1's cost in this run (the 32 KiB table).
@@ -3957,6 +4551,13 @@ def run(procs):
          ck_k1_err),
         ("K1-tile wavefront_strip (left column, words)", "K1-tile",
          "seqalign_tpu/ops/wavefront.py:71", lp["K1-tile"], ck_k1_err),
+        ("K1-chunk wavefront_strip (score-only, column checkpoints, left "
+         "column: the sequence-parallel chunk)", "K1-chunk",
+         "seqalign_tpu/ops/wavefront.py:71", mk["K1-chunk"], 0),
+        ("K1-affine-chunk wavefront_strip (affine, score-only, column "
+         "checkpoints, left columns: the sequence-parallel chunk)",
+         "K1-affine-chunk", "seqalign_tpu/ops/wavefront.py:71",
+         mk["K1-affine-chunk"], 0),
     ) + tuple(
         (name, kid, replaces,
          af[kid] | dict(zip(("plain_ms", "plain_shape"), aff_plain[kid]),
@@ -4008,19 +4609,25 @@ def run(procs):
                  "seqalign_tpu/ops/pallas_fill.py:222")
     batch_walk = ("seqalign_torch/csrc/batch_walk.cu",
                   "seqalign_tpu/ops/batch_traceback.py:187")
+    # Phase 31's launches, the data-parallel runs, by the row's costs.
+    mesh_counts = {costs: {kid: sum(bm[f"{k}{costs}"]["counts"][kid]
+                                    for k in BATCH_MESHES)
+                           for kid in ("K3-score", "K3-dirs", "K4")}
+                   for costs in ("", "-affine")}
     for name, (source, replaces), counter, width, main, errs, more in (
         ("K3-score batch_score", interpair, "K3-score", sw, batch_counts,
-         batch_errs, 0),
+         batch_errs, mesh_counts[""]),
         ("K3-dirs batch_fill_dirs", interpair, "K3-dirs", aw, batch_counts,
-         batch_errs, 0),
+         batch_errs, mesh_counts[""]),
         ("K4 batch_walk", batch_walk, "K4", aw, batch_counts, batch_errs,
-         0),
+         mesh_counts[""]),
         ("K3-affine-score batch_score (affine)", interpair, "K3-score", asw,
-         aff_batch_counts, aff_batch_errs, 0),
+         aff_batch_counts, aff_batch_errs, mesh_counts["-affine"]),
         ("K3-affine-dirs batch_fill_dirs (affine, run bits)", interpair,
-         "K3-dirs", aaw, aff_batch_counts, aff_batch_errs, 0),
+         "K3-dirs", aaw, aff_batch_counts, aff_batch_errs,
+         mesh_counts["-affine"]),
         ("K4-affine batch_walk (three-state walk)", batch_walk, "K4", aaw,
-         aff_batch_counts, aff_batch_errs, 0),
+         aff_batch_counts, aff_batch_errs, mesh_counts["-affine"]),
     ):
         kid = name.split()[0]
         row = width[kid]
@@ -4028,7 +4635,8 @@ def run(procs):
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (main[counter] + width["counts"][counter] + more),
+            "launches": (main[counter] + width["counts"][counter]
+                         + more[counter]),
             "max_abs_err": err, "exact": err == 0,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -4074,7 +4682,9 @@ def run(procs):
         "replaces": "seqalign_tpu/ops/pallas_fill.py:908",
         "launches": (strip_counts["K5"] + sf["host"]["counts"]["K5"]
                      + sf["device"]["counts"]["K5"]
-                     + sf["long_counts"]["K5"]),
+                     + sf["long_counts"]["K5"]
+                     + spf["global"]["launches"]
+                     + spf["local"]["launches"]),
         "max_abs_err": err, "exact": err == 0,
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -4172,6 +4782,33 @@ def run(procs):
                                  "long_wall_s", "long_phase1_s",
                                  "long_phase2_s", "long_strips", "long_tiles",
                                  "long_peak_bytes")}}))
+    # The mesh phases (27-32), host-clock walls beside the single-card
+    # routes of the same run.  The mesh repeats one card: these measure
+    # the pipeline's overhead, not scaling across cards.
+    log(json.dumps({"mesh": {
+        "k1_streams_ms": mk["k1_streams_ms"],
+        "k1_alone_ms": mk["k1_alone_ms"],
+        "k5_streams_ms": mk["k5_streams_ms"],
+        "k5_alone_ms": mk["k5_alone_ms"],
+        "seqpar_1_wall_s": sp1["wall_s"], "direct_wall_s": fw["wall_s"],
+        # A chunk's cost beyond its steps, in steps at the long pair's
+        # phase-1 strip rate (K1-ckpt), beside the gate's constant.
+        "chunk_overhead_steps": (
+            mk["K1-chunk"]["ms"] * lp["strip_steps"] / lp["K1-ckpt"]["ms"]
+            - mk["chunk_steps"]),
+        "gate_overhead_steps": sequence.PIPE_CHUNK_OVERHEAD_STEPS,
+        "seqpar_4": {name: {key: v for key, v in run.items()
+                            if key != "counts"}
+                     for name, run in sp4.items()},
+        "strip_pipeline": spf,
+        "batch": {name: {key: v for key, v in run.items()
+                         if key != "counts"}
+                  for name, run in bm.items()},
+        "batch_single": {"score_wall_ms": sw["wall_ms"],
+                         "align_wall_ms": aw["wall_ms"],
+                         "affine_score_wall_ms": asw["wall_ms"],
+                         "affine_align_wall_ms": aaw["wall_ms"]},
+        "workers_wall_s": bp["wall_s"]}}))
     check(len(REPEATED) == 6, f"K1 repeat checks: {REPEATED}")
     log(json.dumps({"k1_repeats": [
         {"what": what, "runs": REPEATS, "ctas": ctas, "sms": sms}

@@ -21,6 +21,33 @@ def device() -> str:
     return os.environ.get(DEVICE_ENV, "").strip().lower() or "cuda"
 
 
+def mesh_devices(default=None) -> list[str]:
+    """The devices of the default mesh (``parallel/mesh.make_data_mesh``),
+    in order: the engine's device (``default``, or ``device()``) when it
+    is the CPU or names one card (``cuda:1``); for ``cuda``, every visible
+    CUDA device, and none when CUDA is unavailable."""
+    default = str(default or device())
+    if default != "cuda":
+        return [default]
+    import torch
+
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def sequence_parallel(default=None) -> bool:
+    """Whether long single pairs may take the sequence-parallel route
+    (``parallel/sequence.py``), the JAX ``config.sequence_parallel``:
+    ``SEQALIGN_SEQUENCE_PARALLEL`` ``1`` or ``0`` forces it; otherwise on
+    when the default mesh (``mesh_devices(default)``) has more than one
+    entry.  Unforced, the route also waits on its gate,
+    ``sequence.estimated_speedup`` with the chunk cost measured on the
+    card; no output depends on the route."""
+    forced = os.environ.get("SEQALIGN_SEQUENCE_PARALLEL", "")
+    if forced in ("0", "1"):
+        return forced == "1"
+    return len(mesh_devices(default)) > 1
+
+
 def traceback_mode() -> str:
     """Where the strip engine walks its packed words: ``"host"`` (the
     native walk over words on the host, the default) or ``"device"`` (K4

@@ -3,9 +3,11 @@
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config
 from ..native import bindings
@@ -93,15 +95,37 @@ class PairAligner:
 
     def _align_long(self, text, pattern, score_matrix, alphabet_size,
                     gap_penalty, device, semi: bool = False, gap_extend=None):
-        """The direct route when the pair fits it, else the checkpoint
-        engine.  A direct run that runs out of device memory (the budget
-        assumes a card of its own) is retried on the checkpoint engine, on
-        the same device: any ``RuntimeError`` whose message says "out of
-        memory" (any case) or "RESOURCE_EXHAUSTED", as the reference
-        tests, which takes in ``torch.cuda.OutOfMemoryError``, a kernel
-        launch's ``cudaErrorMemoryAllocation`` and torch's untyped "CUDA
-        error: out of memory".  Any other error propagates."""
+        """The sequence-parallel route when ``config.sequence_parallel``
+        lets it and the pair's strips fit the default mesh of ``device``
+        (the JAX routing, ``seqalign_tpu/models/base.py:94-112``, here for
+        the affine and semi-global requests too; never in a process
+        group, whose ranks align pairs of their own), else the direct
+        route when
+        the pair fits it, else the checkpoint engine.  A direct run that
+        runs out of device memory (the budget assumes a card of its own)
+        is retried on the checkpoint engine, on the same device: any
+        ``RuntimeError`` whose message says "out of memory" (any case) or
+        "RESOURCE_EXHAUSTED", as the reference tests, which takes in
+        ``torch.cuda.OutOfMemoryError``, a kernel launch's
+        ``cudaErrorMemoryAllocation`` and torch's untyped "CUDA error: out
+        of memory".  Any other error propagates."""
         n, m = len(text), len(pattern)
+        if not dist.is_initialized() and config.sequence_parallel(device):
+            from ..parallel import mesh as mesh_lib
+            from ..parallel.sequence import ROUTE_SPEEDUP, estimated_speedup
+
+            mesh = mesh_lib.make_data_mesh(
+                devices=config.mesh_devices(device))
+            # The mesh only where the pipeline's modelled time (its steps
+            # and each chunk's measured cost) beats one device's, unless
+            # SEQALIGN_SEQUENCE_PARALLEL=1 forces it.
+            est = estimated_speedup(n, m, mesh.size,
+                                    checkpoint.DEFAULT_CKPT_COLS)
+            forced = os.environ.get("SEQALIGN_SEQUENCE_PARALLEL") == "1"
+            if est > 0 and (forced or est >= ROUTE_SPEEDUP):
+                return self._align_sequence_parallel(
+                    text, pattern, score_matrix, alphabet_size, gap_penalty,
+                    mesh, semi=semi, gap_extend=gap_extend)
         if direct.fits_direct(n, m, affine=gap_extend is not None):
             try:
                 return self._align_direct(text, pattern, score_matrix,
@@ -116,6 +140,24 @@ class PairAligner:
         return self._align_checkpoint(text, pattern, score_matrix,
                                       alphabet_size, gap_penalty, device,
                                       semi=semi, gap_extend=gap_extend)
+
+    def _align_sequence_parallel(self, text, pattern, score_matrix,
+                                 alphabet_size, gap_penalty, mesh,
+                                 semi: bool = False, gap_extend=None):
+        """The checkpoint engine with its phase 1 pipelined over ``mesh``
+        (``parallel/sequence.py``), then ``checkpointed_traceback`` on the
+        mesh's first device: the checkpoint engine's bytes."""
+        from ..parallel.sequence import sequence_parallel_checkpointed_fill
+
+        ck = sequence_parallel_checkpointed_fill(
+            text, pattern, score_matrix, alphabet_size, gap_penalty,
+            local=self.local, semi=semi, gap_extend=gap_extend,
+            ckpt_cols=checkpoint.DEFAULT_CKPT_COLS, mesh=mesh)
+        aligned_text, aligned_pattern, start_t, start_p = (
+            checkpoint.checkpointed_traceback(ck, text, pattern, score_matrix,
+                                              alphabet_size))
+        return AlignmentResult(aligned_text, aligned_pattern, start_t,
+                               start_p, ck.score)
 
     def _align_direct(self, text, pattern, score_matrix, alphabet_size,
                       gap_penalty, device, semi: bool = False,

@@ -1,5 +1,9 @@
-"""Many-pair alignment: ``BatchAligner`` on one device."""
+"""Many pairs and long pairs over a device mesh: ``BatchAligner``
+(``batch.py``), the mesh (``mesh.py``) and the sequence-parallel fills
+(``sequence.py``)."""
 
-from .batch import BatchAligner
+from .batch import BatchAligner, sharded_batch_score
+from .mesh import DataMesh, make_data_mesh, maybe_initialize_distributed
 
-__all__ = ["BatchAligner"]
+__all__ = ["BatchAligner", "DataMesh", "make_data_mesh",
+           "maybe_initialize_distributed", "sharded_batch_score"]

@@ -1,16 +1,23 @@
-"""Length-bucketed many-pair scoring and alignment on one device.
+"""Length-bucketed many-pair scoring and alignment over a device mesh.
 
-The port of the JAX package's ``parallel/batch.py::BatchAligner`` for a
-single GPU.  Pairs are grouped into buckets of one padded shape; K3
-(``ops/batch_fill``) fills a bucket, 32 pairs a CTA, and, for
+The port of the JAX package's ``parallel/batch.py``: ``BatchAligner`` and
+``sharded_batch_score``.  Pairs are grouped into buckets of one padded
+shape, and a bucket's batch is padded to a multiple of the mesh's size
+times ``batch_fill.TILE_QUANTUM`` and cut into one contiguous block an
+entry of the mesh (``parallel/mesh.py``).  On each entry, on its own
+stream, K3 (``ops/batch_fill``) fills the block, 32 pairs a CTA, and, for
 ``align``, K4 (``ops/batch_traceback``) walks every pair's path on the
-device, so only scores, best cells and 2-bit packed moves come back.
-The host replays the moves through the native ``sa_emit_moves_batch``,
+device, so only scores, best cells and 2-bit packed moves come back.  The
+host replays the moves through the native ``sa_emit_moves_batch``,
 byte-identical to the oracle.  Pairs with an empty sequence go to the
 native oracle.  Linear or affine (Gotoh) gaps: global, local and
 semi-global.  Under ``SEQALIGN_INT16_CELLS`` (``config.int16_cells``) a
 bucket whose padded shape ``int16_cells_ok`` admits is filled in int16
 cells (``csrc/interpair16.cu``), as in the JAX class; no output changes.
+
+Across processes (``torch.distributed``), ``score`` all-gathers its
+scores, and ``align`` returns the alignments of this process's blocks
+only: the other processes' pairs stay None, as in the JAX class.
 """
 
 from __future__ import annotations
@@ -27,16 +34,19 @@ from .. import config
 from ..models.base import AlignmentResult
 from ..native import bindings
 from ..ops import batch_fill, batch_traceback, layout
+from . import mesh as mesh_lib
 
-# Device budget for one chunk's direction words; buckets of big pairs are
-# aligned in chunks under it.  Same name and default as the JAX package.
+# Device budget for one chunk's direction words on each entry of the
+# mesh; buckets of big pairs are aligned in chunks under it.  Same name
+# and default as the JAX package.
 DIRS_HBM_BUDGET = 2 << 30
 # Pairs of one align chunk at most: a bucket is cut into chunks of this
 # size so that the host's download and native emit of one chunk overlap
-# the device's fill and walk of the next.  The JAX package's default.
+# the devices' fill and walk of the next.  The JAX package's default.
 PIPELINE_PAIRS = 16384
-# Chunks dispatched to the device and not yet downloaded, and downloaded
-# chunks waiting for the emit thread: at most this many of each.
+# Chunks dispatched to the devices and not yet downloaded, and downloaded
+# chunks waiting for the emit thread: at most this many of each (each
+# chunk holds one block of pinned outputs an entry of the mesh).
 MAX_PENDING = 2
 
 
@@ -51,25 +61,99 @@ class _Bucket:
     m_pad: int
 
 
-class BatchAligner:
-    """Length-bucketed many-pair scorer and aligner on one device.
+def cell16_for(n_pad: int, m_pad: int, score_matrix, k_alpha: int, gap,
+               gap_extend=None) -> bool:
+    """Whether a bucket of padded shape (n_pad, m_pad) takes the int16
+    cells: never under ``SEQALIGN_INT16_CELLS=0``; where
+    ``int16_cells_ok`` admits it under ``auto``; always under ``1``, which
+    refuses a bucket it does not admit, with the JAX ValueError."""
+    mode = config.int16_cells()
+    if mode == "0":
+        return False
+    ok = batch_fill.int16_cells_ok(n_pad, m_pad, score_matrix, k_alpha, gap,
+                                   gap_extend)
+    if mode == "1" and not ok:
+        raise ValueError(
+            "SEQALIGN_INT16_CELLS=1 but the padded shapes/scores "
+            "exceed the int16 value cap (int16_cells_ok is False)")
+    return ok
 
-    The JAX class's constructor, with an explicit ``device`` (default
-    ``config.device()``, so ``cuda``) in place of its mesh.
-    ``gap_extend``: affine (Gotoh) gap costs, a run of length L costing
-    gap_penalty + (L-1)*gap_extend, with gap_penalty >= gap_extend; None
-    is the linear model.  On a CUDA device every bucket runs through K3
-    and K4 (their affine instances with ``gap_extend``); the plain
-    PyTorch versions run only when ``device`` is the CPU.
+
+def _replicas(mesh, array, cache=None):
+    """``array`` for every local entry of the mesh (the JAX
+    ``replicated``), each copy made on its entry's stream, which reads it;
+    ``cache`` keeps them across calls, by entry."""
+    cache = {} if cache is None else cache
+    for e, device in enumerate(mesh.devices):
+        if e not in cache:
+            with mesh.on(e):
+                cache[e] = torch.as_tensor(array).to(device)
+    return [cache[e] for e in range(mesh.local_size)]
+
+
+def sharded_batch_score(mesh, texts, patterns, ns, ms, score_matrix, gap,
+                        local: bool = False, semi: bool = False,
+                        gap_extend=None, uniform: bool = False
+                        ) -> np.ndarray:
+    """Scores of a padded batch over ``mesh`` (the JAX
+    ``sharded_batch_score``).  texts (B, N) and patterns (B, M) are host
+    letter arrays (int8 or int32), ns and ms (B,) int32 lengths (0 for
+    padding pairs), score_matrix (k, k); B is a multiple of ``mesh.size``.
+    Each local entry fills its block with K3 on its own stream (int16
+    cells as ``cell16_for`` decides over (N, M)); the blocks' scores come
+    back in global order, all-gathered from every process.  ``uniform``
+    is the JAX signature's (its kernel then drops the masking of cells
+    past a pair's lengths); the port's K3 masks every cell, so it changes
+    nothing.  Returns (B,) int32: padding pairs score as
+    ``batch_fill.batch_score`` says."""
+    del uniform
+    texts, patterns, ns, ms = (np.asarray(x) for x in (texts, patterns, ns,
+                                                       ms))
+    k = score_matrix.shape[0]
+    cell16 = cell16_for(texts.shape[1], patterns.shape[1], score_matrix, k,
+                        gap, gap_extend)
+    sms = _replicas(mesh, score_matrix)
+    b = texts.shape[0]
+    scores = []
+    for e, device in enumerate(mesh.devices):
+        rows = mesh.rows(b, e)
+        with mesh.on(e):
+            block = [torch.from_numpy(np.ascontiguousarray(x[rows])).to(
+                device, non_blocking=True) for x in (texts, patterns, ns,
+                                                     ms)]
+            scores.append(batch_fill.batch_score(
+                *block, sms[e], gap, k, local=local, semi=semi,
+                gap_extend=gap_extend, cell16=cell16))
+    host = []
+    for e, s in enumerate(scores):
+        with mesh.on(e):
+            host.append(s.cpu())
+    return mesh.all_gather(torch.cat(host)).numpy()
+
+
+class BatchAligner:
+    """Length-bucketed many-pair scorer and aligner over a device mesh.
+
+    The JAX class's constructor.  ``mesh`` is a ``parallel/mesh.DataMesh``;
+    ``device`` stays as the shorthand for a mesh of that one device in
+    this process, and neither given means ``make_data_mesh()`` (every
+    visible CUDA device).  ``gap_extend``: affine (Gotoh) gap costs, a run
+    of length L costing gap_penalty + (L-1)*gap_extend, with gap_penalty
+    >= gap_extend; None is the linear model.  On a CUDA entry every block
+    runs through K3 and K4 (their affine instances with ``gap_extend``);
+    the plain PyTorch versions run only on a CPU entry.  A failed launch
+    or collective raises: no entry's work moves to another device.
     """
 
     def __init__(self, score_matrix: np.ndarray, alphabet_size: int,
                  gap_penalty: int, local: bool = False, semi: bool = False,
-                 gap_extend: Optional[int] = None, device=None):
+                 gap_extend: Optional[int] = None, mesh=None, device=None):
         if gap_extend is not None and gap_penalty < gap_extend:
             raise ValueError("affine gaps require gap_penalty >= gap_extend")
         if semi and local:
             raise ValueError("semi is exclusive with local")
+        if mesh is not None and device is not None:
+            raise ValueError("give a mesh or a device, not both")
         k = alphabet_size
         sm = np.asarray(score_matrix, dtype=np.int32).reshape(-1)[:k * k]
         # Raises ValueError for |score| > 127, the JAX engines' contract.
@@ -79,15 +163,10 @@ class BatchAligner:
         self.gap_extend = None if gap_extend is None else int(gap_extend)
         self.local = local
         self.semi = semi
-        self.device = torch.device(
-            device if device is not None else config.device())
-        self._sm_device = None
-
-    def _sm(self) -> torch.Tensor:
-        if self._sm_device is None:
-            self._sm_device = torch.as_tensor(self.score_matrix).to(
-                self.device)
-        return self._sm_device
+        if device is not None:
+            mesh = mesh_lib.DataMesh([device])
+        self.mesh = mesh if mesh is not None else mesh_lib.make_data_mesh()
+        self._sm_cache = {}
 
     @staticmethod
     def _pairs(texts, patterns):
@@ -163,27 +242,6 @@ class BatchAligner:
         rows[np.arange(width) < lengths[:, None]] = letters
         return rows
 
-    def _cell16(self, n_pad: int, m_pad: int) -> bool:
-        """Whether a bucket of padded shape (n_pad, m_pad) takes the int16
-        cells: never under ``SEQALIGN_INT16_CELLS=0``; where
-        ``int16_cells_ok`` admits it under ``auto``; always under ``1``,
-        which refuses a bucket it does not admit, with the JAX class's
-        ValueError."""
-        mode = config.int16_cells()
-        if mode == "0":
-            return False
-        ok = batch_fill.int16_cells_ok(n_pad, m_pad, self.score_matrix,
-                                       self.alphabet_size, self.gap_penalty,
-                                       self.gap_extend)
-        if mode == "1" and not ok:
-            raise ValueError(
-                "SEQALIGN_INT16_CELLS=1 but the padded shapes/scores "
-                "exceed the int16 value cap (int16_cells_ok is False)")
-        return ok
-
-    def _upload(self, *arrays):
-        return [torch.from_numpy(a).to(self.device) for a in arrays]
-
     def score(self, texts: Sequence[np.ndarray],
               patterns: Sequence[np.ndarray], *,
               swap: bool = True) -> np.ndarray:
@@ -199,46 +257,54 @@ class BatchAligner:
                     texts[i], patterns[i] = patterns[i], texts[i]
         out = np.zeros(len(texts), dtype=np.int32)
         self._oracle_degenerate(out, None, texts, patterns)
+        quantum = self.mesh.size * batch_fill.TILE_QUANTUM
         for bucket in self._buckets(
                 texts, patterns, lambda n: layout.padded_width(n) - 1,
                 layout.padded_rows):
-            cell16 = self._cell16(bucket.n_pad, bucket.m_pad)
+            b = len(bucket.indices)
             arrays = self._pack(bucket.indices, bucket.n_pad, bucket.m_pad,
-                                len(bucket.indices), texts, patterns)
-            scores = batch_fill.batch_score(
-                *self._upload(*arrays), self._sm(), self.gap_penalty,
-                self.alphabet_size, local=self.local, semi=self.semi,
-                gap_extend=self.gap_extend, cell16=cell16)
-            out[bucket.indices] = scores.cpu().numpy()
+                                -(-b // quantum) * quantum, texts, patterns)
+            scores = sharded_batch_score(
+                self.mesh, *arrays, self.score_matrix, self.gap_penalty,
+                local=self.local, semi=self.semi, gap_extend=self.gap_extend)
+            out[bucket.indices] = scores[:b]
         return out
 
-    def _dirs_tile_pairs(self, n_pad: int, m_pad: int) -> tuple[int, int]:
-        """(tile_pairs, chunk_pairs) of an align bucket.  The kernels
-        coalesce over any 32 neighbouring pairs, so the tile is only the
-        unit of the JAX word layout: its smallest, 128, pads a chunk by
-        fewer than 128 pairs.  A chunk's words (both planes with affine
-        gaps, where the JAX class counts one) stay under DIRS_HBM_BUDGET
-        (at least one tile) and its pairs under PIPELINE_PAIRS, rounded
-        up to whole tiles.  The chunking changes no output: every pair
-        is filled and walked on its own."""
+    def _dirs_tile_pairs(self, n_pad: int, m_pad: int,
+                         d_count: int = 1) -> tuple[int, int]:
+        """(tile_pairs, chunk_pairs) of an align bucket over ``d_count``
+        mesh entries.  The kernels coalesce over any 32 neighbouring pairs,
+        so the tile is only the unit of the JAX word layout: its smallest,
+        128, pads an entry's block by fewer than 128 pairs.  An entry's
+        words (both planes with affine gaps, where the JAX class counts
+        one) stay under DIRS_HBM_BUDGET (at least one tile), and a chunk's
+        pairs under PIPELINE_PAIRS, rounded up to whole tiles on every
+        entry.  The chunking changes no output: every pair is filled and
+        walked on its own."""
         tile = batch_fill.TILE_QUANTUM
         planes = 1 if self.gap_extend is None else 2
         words_bytes = planes * (m_pad // 16) * n_pad * 4
-        chunk = max(tile, DIRS_HBM_BUDGET // words_bytes // tile * tile)
-        return tile, min(chunk, -(-PIPELINE_PAIRS // tile) * tile)
+        per_entry = max(tile, DIRS_HBM_BUDGET // words_bytes // tile * tile)
+        quantum = tile * d_count
+        return tile, min(per_entry * d_count,
+                         -(-PIPELINE_PAIRS // quantum) * quantum)
 
     def align(self, texts: Sequence[np.ndarray],
               patterns: Sequence[np.ndarray]) -> list:
         """Full alignments of all pairs, as given (no swap: the tie policy
         depends on the orientation).  Returns one ``AlignmentResult`` a
         pair (alphabet indices, gap == alphabet size), byte-identical to
-        the oracle; each owns its arrays.
+        the oracle; each owns its arrays.  Across processes, the pairs of
+        the other processes' blocks stay None (the JAX contract: move
+        lists are too large to all-gather); pairs with an empty sequence,
+        which the oracle aligns, are in every process's results.
 
-        Buckets are cut into chunks (``_dirs_tile_pairs``).  A chunk's
-        fill and walk are queued on the device with its small outputs'
-        copy to the host behind them; the host collects one chunk behind
-        the device and replays the moves on a worker thread, so
-        downloads and the native emit overlap the next chunk's fill.
+        Buckets are cut into chunks (``_dirs_tile_pairs``), each padded to
+        whole tiles on every entry of the mesh.  A chunk's fill and walk
+        are queued on each entry's stream with its small outputs' copy to
+        the host behind them; the host collects one chunk behind the
+        devices and replays the moves on a worker thread, so downloads
+        and the native emit overlap the next chunk's fill.
         """
         texts, patterns = self._pairs(texts, patterns)
         results: list = [None] * len(texts)
@@ -259,7 +325,8 @@ class BatchAligner:
 
             for bucket in buckets:
                 n_pad, m_pad, idx = bucket.n_pad, bucket.m_pad, bucket.indices
-                tile_pairs, chunk = self._dirs_tile_pairs(n_pad, m_pad)
+                tile_pairs, chunk = self._dirs_tile_pairs(n_pad, m_pad,
+                                                          self.mesh.size)
                 for c0 in range(0, len(idx), chunk):
                     pending.append(self._dispatch_bucket(
                         idx[c0:c0 + chunk], n_pad, m_pad, tile_pairs,
@@ -274,55 +341,81 @@ class BatchAligner:
 
     def _dispatch_bucket(self, idx, n_pad, m_pad, tile_pairs, texts,
                          patterns):
-        """Queue one chunk's upload, fill (K3), walk (K4) and the copy of
-        its outputs to the host; returns what collecting it needs."""
-        cell16 = self._cell16(n_pad, m_pad)
-        b_pad = -(-len(idx) // tile_pairs) * tile_pairs
+        """Queue one chunk's uploads, fills (K3), walks (K4) and the copy
+        of their outputs to the host, one block a local entry of the mesh
+        on its stream; returns what collecting it needs.  Entries whose
+        block holds padding pairs only get no work."""
+        mesh = self.mesh
+        cell16 = cell16_for(n_pad, m_pad, self.score_matrix,
+                            self.alphabet_size, self.gap_penalty,
+                            self.gap_extend)
+        quantum = tile_pairs * mesh.size
+        b_pad = -(-len(idx) // quantum) * quantum
         t_arr, p_arr, ns, ms = self._pack(idx, n_pad, m_pad, b_pad, texts,
                                           patterns)
-        t_dev, p_dev, ns_dev, ms_dev = self._upload(t_arr, p_arr, ns, ms)
-        out = batch_fill.batch_fill_dirs(
-            t_dev, p_dev, ns_dev, ms_dev, self._sm(), self.gap_penalty,
-            self.alphabet_size, local=self.local, semi=self.semi,
-            tile_pairs=tile_pairs, gap_extend=self.gap_extend, cell16=cell16)
-        scores, bis, bjs, dirs = out[:4]
-        dirs2 = out[4] if self.gap_extend is not None else None
-        if self.local:
-            # No-match pairs (best <= 0): an empty alignment with the
-            # reference's cursor sentinels.
-            matched = scores > 0
-            bis = torch.where(matched, bis, 0)
-            bjs = torch.where(matched, bjs, 0)
+        sms = _replicas(mesh, self.score_matrix, self._sm_cache)
         max_len = -(-(n_pad + m_pad) // 16) * 16
-        packed, lengths, _, j_fin = batch_traceback.batch_walk(
-            dirs, ns_dev, ms_dev, bis, bjs, self.local, self.semi, max_len,
-            dirs2=dirs2)
-        outs = (scores, bis, bjs, packed, lengths, j_fin)
-        done = None
-        if self.device.type == "cuda":
-            host = tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                         for x in outs)
-            for h, x in zip(host, outs):
-                h.copy_(x, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            outs = host
-        return idx, t_arr, p_arr, ns, ms, outs, done
+        blocks = []
+        for e, device in enumerate(mesh.devices):
+            rows = mesh.rows(b_pad, e)
+            if rows.start >= len(idx):
+                continue
+            with mesh.on(e):
+                t_dev, p_dev, ns_dev, ms_dev = (
+                    torch.from_numpy(x[rows]).to(device, non_blocking=True)
+                    for x in (t_arr, p_arr, ns, ms))
+                out = batch_fill.batch_fill_dirs(
+                    t_dev, p_dev, ns_dev, ms_dev, sms[e], self.gap_penalty,
+                    self.alphabet_size, local=self.local, semi=self.semi,
+                    tile_pairs=tile_pairs, gap_extend=self.gap_extend,
+                    cell16=cell16)
+                scores, bis, bjs, dirs = out[:4]
+                dirs2 = out[4] if self.gap_extend is not None else None
+                if self.local:
+                    # No-match pairs (best <= 0): an empty alignment with
+                    # the reference's cursor sentinels.
+                    matched = scores > 0
+                    bis = torch.where(matched, bis, 0)
+                    bjs = torch.where(matched, bjs, 0)
+                packed, lengths, _, j_fin = batch_traceback.batch_walk(
+                    dirs, ns_dev, ms_dev, bis, bjs, self.local, self.semi,
+                    max_len, dirs2=dirs2)
+                outs = (scores, bis, bjs, packed, lengths, j_fin)
+                done = None
+                if device.type == "cuda":
+                    host = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                             pin_memory=True) for x in outs)
+                    for h, x in zip(host, outs):
+                        h.copy_(x, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(mesh.streams[e])
+                    outs = host
+            blocks.append((rows, outs, done))
+        return idx, t_arr, p_arr, ns, ms, blocks
 
     @staticmethod
     def _download_bucket(pending):
         """Wait for one chunk's outputs on the host (only that chunk's
-        work, not the chunks queued after it)."""
-        idx, t_arr, p_arr, ns, ms, outs, done = pending
-        if done is not None:
-            done.synchronize()
-        return (idx, t_arr, p_arr, ns, ms) + tuple(x.numpy() for x in outs)
+        work, not the chunks queued after it); returns one host tuple a
+        block, its pairs' indices first."""
+        idx, t_arr, p_arr, ns, ms, blocks = pending
+        host = []
+        for rows, outs, done in blocks:
+            if done is not None:
+                done.synchronize()
+            host.append((idx[rows.start:rows.stop], t_arr[rows], p_arr[rows],
+                         ns[rows], ms[rows]) + tuple(x.numpy() for x in outs))
+        return host
 
     def _emit_bucket(self, host, results):
-        """Replay one chunk's moves through one native call (numpy and
-        ctypes only, so it runs on the worker thread) into results."""
+        """Replay one chunk's moves, one native call a block (numpy and
+        ctypes only, so it runs on the worker thread), into results."""
+        for block in host:
+            self._emit_block(block, results)
+
+    def _emit_block(self, block, results):
         (idx, t_arr, p_arr, ns, ms, scores, bis, bjs, packed, lengths,
-         j_fin) = host
+         j_fin) = block
         if self.local or self.semi:
             start_is, start_js = bis, bjs
         else:

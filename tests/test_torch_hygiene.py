@@ -65,6 +65,10 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.ops.batch_fill",
                  "seqalign_torch.ops.batch_traceback",
                  "seqalign_torch.parallel", "seqalign_torch.parallel.batch",
+                 "seqalign_torch.parallel.mesh",
+                 "seqalign_torch.parallel.sequence",
+                 "seqalign_torch.parallel.dryrun",
+                 "seqalign_torch.parallel.worker",
                  "seqalign_torch.ops.strip_fill", "seqalign_torch.ops.tiled",
                  "seqalign_torch.probes", "seqalign_torch.probes.dpx16",
                  "seqalign_torch.probes.walk_costs",
