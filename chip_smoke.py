@@ -117,11 +117,12 @@ without its last line:
     read-back of K2's result and moves alone.
 13. Affine (Gotoh) K1 and K2 against their plain versions, on the card:
     K1 with words and score-only with checkpoints at rps 16 x 4096, 4 x
-    1024 and 1 x 128 slots, three modes, DNA and protein, extend < open
-    and extend == open; K1 with the left columns of H and E on row-0,
-    column-0 and interior tiles of real affine phase-1 fills (rps 16 x
-    4096 slots with 8192 columns a tile and two strips, 4 x 1024 and 1 x
-    128); every output (words, run bits, both streams, trackers, the H
+    1024 and 1 x 128 slots, global DNA and local protein at extend <
+    open (every K1 and K2 instance), with words also semi-global DNA at
+    extend == open; K1 with the left columns of H and E on the interior
+    tile of a real affine phase-1 fill at rps 16 x 4096 slots (8192
+    columns a tile, two strips), and on row-0, column-0 and interior
+    tiles at 4 x 1024 and 1 x 128; every output (words, run bits, both streams, trackers, the H
     and E checkpoints), and K2 on each set of words from gap states 0, 1
     and 2 and with a buffer of 64 moves (in a local tile from the best
     cell of its bottom row); then ``walk_shapes``' check at the least
@@ -270,7 +271,22 @@ without its last line:
     seqalign_torch.parallel.worker`` processes share the card over gloo,
     two entries each; each byte-checks its shard against the oracle,
     and the all-gathered scores equal one process's.
-33. A ``launch_ledger`` JSON line (each kernel row's launches and device
+33. The models' ``score()`` (K1 score-only with checkpoints, the
+    checkpoint engine's phase 1): global, local and semi-global on phase
+    4's bundled pairs, each equal to ``oracle_fill``'s score; global and
+    local on phase 5's and phase 12's pairs, each equal to the oracle's
+    score-only fill, K1 launched once a strip and no plain version run;
+    each wall and its K1 time (the ledger's events) beside the same
+    pair's ``-g`` wall (phases 5 and 12).
+34. ``seqalign_torch.bench.suite``'s verbs at reduced sizes (BENCH_VERBS:
+    throughput global and local, latency, batch linear and affine,
+    batch-e2e, maxlength through K1 and through the tiled fill at its
+    default 120,000 x 120,000, engines at its default 4,096), each
+    verb's kernels launched and no plain version run; maxlength's two
+    engines and ``SmithWaterman.score()`` equal on its pair; then
+    ``python -m seqalign_torch.bench.headline`` in a process of its own,
+    its last line parsed as the four-key JSON, beside phase 8's K3.
+35. A ``launch_ledger`` JSON line (each kernel row's launches and device
     ms summed over every launch made under a user entry point, timed
     between CUDA events from phase 2 on, in all and by phase), the
     longest K3 launch of the ragged mixes (phases 7, 20, 24) beside its
@@ -287,10 +303,11 @@ without its last line:
     (phases 27-32's walls beside the single-card routes'; the mesh
     repeats one card, so they measure the pipeline's overhead, not
     scaling), the card's name and power limit from nvidia-smi, and
-    ``{"ok": true, "device": {...}}``.
+    ``{"ok": true, "device": {...}}``; the kernels line's launches take
+    in phases 33-34's from the ledger.
 
-The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18 and 20-22
-(and 24, which reuses 7-9's and 20-22's) runs in subprocesses and threads
+The oracle's side of phases 4, 5, 7-9, 11, 12, 14, 15, 17, 18, 20-22 and
+33 (and 24, which reuses 7-9's and 20-22's) runs in subprocesses and threads
 beside the device phases.
 A host without a CUDA device fails at once and prints no result.
 """
@@ -314,7 +331,9 @@ import numpy as np
 import torch
 
 from seqalign_torch import cli, config, pretty
+from seqalign_torch.bench import suite
 from seqalign_torch.io import parse_score_matrix_file
+from seqalign_torch.models import NeedlemanWunsch, SemiGlobal, SmithWaterman
 from seqalign_torch.native import bindings
 from seqalign_torch.native.build import ensure_built
 from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
@@ -449,14 +468,26 @@ ALGO = {"global": 0, "local": 1, "semi": 2}
 AFFINE_GEOMETRIES = ((16, 4096, 8192, 1200, 8500),
                      (4, 1024, 2048, 2000, 4500),
                      (1, 128, 256, 2000, 2000))
+# Phase 13's (k, mode) cases at each geometry, with words and score-only.
+# A K1 instance is set by rps, words or not, affine or not and whether
+# the fill tracks a best cell (local and semi-global do, global does
+# not); the alphabet and the costs are arguments.  So global DNA and
+# local protein hold every instance, and semi-global DNA adds the linear
+# costs through the affine kernel (extend == open, ``affine_costs``).
+AFFINE_WORD_CASES = ((4, "global"), (23, "local"), (4, "semi"))
+AFFINE_SCORE_CASES = ((4, "global"), (23, "local"))
 # Tiles of a real affine phase-1 fill (phase 13): rps, slots, columns a
-# tile, n, m, the (k, mode) cases.  The first is the main path's tile
-# geometry (rps 16 x 4096 slots, two strips), at 8192 columns a tile.
+# tile, n, m, the (k, mode) cases, the tiles (strip, column tile, where).
+# The first is the main path's tile geometry (rps 16 x 4096 slots, two
+# strips), at 8192 columns a tile: its interior tile (the row-0 and
+# column-0 tiles take the same instance, held at the other geometries).
+AFFINE_TILES = ((0, 1, "row 0"), (1, 0, "column 0"), (1, 1, "interior"))
 AFFINE_TILE_FILLS = (
-    (16, 4096, 8192, 12000, 65536 + 1500, ((4, "global"),)),
-    (4, 1024, 2048, 5000, 6000, ((4, "global"), (23, "local"))),
-    (1, 128, 256, 1500, 600, tuple((k, mode) for k in (4, 23)
-                                   for mode in MODES)),
+    (16, 4096, 8192, 12000, 65536 + 1500, ((4, "global"),),
+     AFFINE_TILES[2:]),
+    (4, 1024, 2048, 5000, 6000, ((4, "global"), (23, "local")),
+     AFFINE_TILES),
+    (1, 128, 256, 1500, 600, AFFINE_WORD_CASES, AFFINE_TILES),
 )
 NC_018874 = ("data/dna/NC_018874.txt", "data/dna/mutated_NC_018874.txt")
 DNA_AFFINE = ["--gap-penalty", "8", "--gap-extend", "2"]
@@ -645,9 +676,12 @@ PHASE = [""]
 # both walk modes and the long pair's tiled_fill_score (18).  The other
 # phases run correctness mixes (4, 7, 11, 14, 17, 20, "24 mixes"), some
 # of them more than once.
-WORKLOAD_PHASES = ("5", "8", "9", "12", "15", "18", "21", "22", "24 width")
+WORKLOAD_PHASES = ("5", "8", "9", "12", "15", "18", "21", "22", "24 width",
+                   "33")
 ENTRY_POINTS = (
     (os.path.join("seqalign_torch", "api.py"), None),
+    (os.path.join("seqalign_torch", "models", "base.py"), "score"),
+    (os.path.join("seqalign_torch", "bench", "suite.py"), None),
     (os.path.join("seqalign_torch", "parallel", "batch.py"), None),
     (os.path.join("seqalign_torch", "ops", "tiled.py"), "tiled_fill_score"),
     (os.path.join("seqalign_torch", "ops", "checkpoint.py"),
@@ -2571,84 +2605,82 @@ def phase_affine_kernels(device="cuda"):
                           "K2-affine"), 0)
     plain = {}
     for rps, slots, every, n_words, n_ckpt in AFFINE_GEOMETRIES:
-        for k in (4, 23):
-            for mode in MODES:
-                local, semi = mode == "local", mode == "semi"
-                gap, ext = affine_costs(k, mode)
-                m = rps * slots - 3
-                tag = (f"{mode:6s} k={k:2d} rps={rps:2d} slots={slots} "
-                       f"open {gap} extend {ext}")
-                args, fbot = affine_strip_case(rng, n_words, m, k, rps, slots,
-                                               local, semi, gap, ext, device)
-                kw = dict(local=local, rps=rps, slots=slots, semi=semi,
-                          affine=True, ext=ext, fbot_in=fbot)
-                out, ms = timed(wavefront.wavefront_strip, *args, gap,
-                                n_words, m, 0, k, **kw)
-                want, plain_ms = timed(wavefront.wavefront_strip_plain,
-                                       *args, gap, n_words, m, 0, k, **kw)
-                err = max_abs_err(out, want)
-                check(err == 0 and out[6] is not None,
-                      f"K1 affine {tag}: max_abs_err {err}")
-                if (rps, k, mode) == (16, 4, "global"):
-                    repeat_launches(f"K1 affine with words, rps {rps} x "
-                                    f"{slots}", want, *args, gap, n_words, m,
-                                    0, k, **kw)
-                del want
-                i0, j0 = walk_start(out[:6], n_words, m, rps, slots, local,
-                                    semi)
-                max_moves = -(-(n_words + m + 1) // 16) * 16
-                t0 = time.time()
-                werr, moves = compare_affine_walks(out[0], out[6], rps, i0,
-                                                   j0, local, max_moves)
-                walks_s = time.time() - t0
-                errs["K1-affine"] = max(errs["K1-affine"], err)
-                errs["K2-affine"] = max(errs["K2-affine"], werr)
-                if rps == 16 and "K1-affine" not in plain:
-                    # The plain walk's time: one walk from state 0.
-                    _, walk_ms = timed(walk.walk_skewed_window_plain, out[0],
-                                       rps, 0, 0, i0, j0, local, max_moves,
-                                       out[6], 0)
-                    shape = f"{m} x {n_words}, rps {rps}, slots {slots}"
-                    plain["K1-affine"] = (plain_ms, f"{shape}, {mode}")
-                    plain["K2-affine"] = (walk_ms, f"{moves} moves of the "
-                                                   f"words of {shape}")
-                log(f"K1 affine with words {tag}: exact (kernel {ms:.1f} "
-                    f"ms, plain {plain_ms:.0f} ms); K2 from ({i0}, {j0}) in "
-                    f"states 0-2 and with 64 moves: exact, {moves} moves "
-                    f"({walks_s:.1f} s)")
+        for k, mode in AFFINE_WORD_CASES:
+            local, semi = mode == "local", mode == "semi"
+            gap, ext = affine_costs(k, mode)
+            m = rps * slots - 3
+            tag = (f"{mode:6s} k={k:2d} rps={rps:2d} slots={slots} "
+                   f"open {gap} extend {ext}")
+            args, fbot = affine_strip_case(rng, n_words, m, k, rps, slots,
+                                           local, semi, gap, ext, device)
+            kw = dict(local=local, rps=rps, slots=slots, semi=semi,
+                      affine=True, ext=ext, fbot_in=fbot)
+            out, ms = timed(wavefront.wavefront_strip, *args, gap,
+                            n_words, m, 0, k, **kw)
+            want, plain_ms = timed(wavefront.wavefront_strip_plain,
+                                   *args, gap, n_words, m, 0, k, **kw)
+            err = max_abs_err(out, want)
+            check(err == 0 and out[6] is not None,
+                  f"K1 affine {tag}: max_abs_err {err}")
+            if (rps, k, mode) == (16, 4, "global"):
+                repeat_launches(f"K1 affine with words, rps {rps} x "
+                                f"{slots}", want, *args, gap, n_words, m,
+                                0, k, **kw)
+            del want
+            i0, j0 = walk_start(out[:6], n_words, m, rps, slots, local,
+                                semi)
+            max_moves = -(-(n_words + m + 1) // 16) * 16
+            t0 = time.time()
+            werr, moves = compare_affine_walks(out[0], out[6], rps, i0,
+                                               j0, local, max_moves)
+            walks_s = time.time() - t0
+            errs["K1-affine"] = max(errs["K1-affine"], err)
+            errs["K2-affine"] = max(errs["K2-affine"], werr)
+            if rps == 16 and "K1-affine" not in plain:
+                # The plain walk's time: one walk from state 0.
+                _, walk_ms = timed(walk.walk_skewed_window_plain, out[0],
+                                   rps, 0, 0, i0, j0, local, max_moves,
+                                   out[6], 0)
+                shape = f"{m} x {n_words}, rps {rps}, slots {slots}"
+                plain["K1-affine"] = (plain_ms, f"{shape}, {mode}")
+                plain["K2-affine"] = (walk_ms, f"{moves} moves of the "
+                                               f"words of {shape}")
+            log(f"K1 affine with words {tag}: exact (kernel {ms:.1f} "
+                f"ms, plain {plain_ms:.0f} ms); K2 from ({i0}, {j0}) in "
+                f"states 0-2 and with 64 moves: exact, {moves} moves "
+                f"({walks_s:.1f} s)")
 
-                if rps == 16 and (k, mode) not in ((4, "global"),
-                                                   (23, "local")):
-                    continue  # two score-only cases at the widest strip
-                args, fbot = affine_strip_case(rng, n_ckpt, m, k, rps, slots,
-                                               local, semi, gap, ext, device)
-                kw.update(with_dirs=False, ckpt_every=every, fbot_in=fbot)
-                out, ms = timed(wavefront.wavefront_strip, *args, gap,
-                                n_ckpt, m, 0, k, **kw)
-                want, plain_ms = timed(wavefront.wavefront_strip_plain,
-                                       *args, gap, n_ckpt, m, 0, k, **kw)
-                # Every output, each checkpoint entry of H and E included
-                # (0 where a slot does not reach the column).
-                err = max_abs_err(out, want)
-                check(err == 0 and out[0] is None and out[6] is None
-                      and out[8] is not None,
-                      f"K1 affine score-only {tag}: max_abs_err {err}")
-                if (rps, k, mode) == (16, 4, "global"):
-                    repeat_launches(f"K1 affine score-only, rps {rps} x "
-                                    f"{slots}", want, *args, gap, n_ckpt, m,
-                                    0, k, **kw)
-                del want
-                errs["K1-affine-ckpt"] = max(errs["K1-affine-ckpt"], err)
-                if rps == 16 and "K1-affine-ckpt" not in plain:
-                    plain["K1-affine-ckpt"] = (
-                        plain_ms, f"{m} x {n_ckpt}, rps {rps}, slots "
-                                  f"{slots}, checkpoints every {every}, "
-                                  f"{mode}")
-                log(f"K1 affine score-only, checkpoints every {every}, "
-                    f"{tag}: exact ({out[5].shape[0] // rps} columns of H "
-                    f"and E; kernel {ms:.1f} ms, plain {plain_ms:.0f} ms)")
+            if (k, mode) not in AFFINE_SCORE_CASES:
+                continue
+            args, fbot = affine_strip_case(rng, n_ckpt, m, k, rps, slots,
+                                           local, semi, gap, ext, device)
+            kw.update(with_dirs=False, ckpt_every=every, fbot_in=fbot)
+            out, ms = timed(wavefront.wavefront_strip, *args, gap,
+                            n_ckpt, m, 0, k, **kw)
+            want, plain_ms = timed(wavefront.wavefront_strip_plain,
+                                   *args, gap, n_ckpt, m, 0, k, **kw)
+            # Every output, each checkpoint entry of H and E included
+            # (0 where a slot does not reach the column).
+            err = max_abs_err(out, want)
+            check(err == 0 and out[0] is None and out[6] is None
+                  and out[8] is not None,
+                  f"K1 affine score-only {tag}: max_abs_err {err}")
+            if (rps, k, mode) == (16, 4, "global"):
+                repeat_launches(f"K1 affine score-only, rps {rps} x "
+                                f"{slots}", want, *args, gap, n_ckpt, m,
+                                0, k, **kw)
+            del want
+            errs["K1-affine-ckpt"] = max(errs["K1-affine-ckpt"], err)
+            if rps == 16 and "K1-affine-ckpt" not in plain:
+                plain["K1-affine-ckpt"] = (
+                    plain_ms, f"{m} x {n_ckpt}, rps {rps}, slots "
+                              f"{slots}, checkpoints every {every}, "
+                              f"{mode}")
+            log(f"K1 affine score-only, checkpoints every {every}, "
+                f"{tag}: exact ({out[5].shape[0] // rps} columns of H "
+                f"and E; kernel {ms:.1f} ms, plain {plain_ms:.0f} ms)")
     # Tiles of real affine phase-1 fills: row 0, column 0, interior.
-    for rps, slots, cols, n, m, cases in AFFINE_TILE_FILLS:
+    for rps, slots, cols, n, m, cases, positions in AFFINE_TILE_FILLS:
         rows = rps * slots
         for k, mode in cases:
             gap, ext = affine_costs(k, mode)
@@ -2659,8 +2691,7 @@ def phase_affine_kernels(device="cuda"):
                 text, pattern, sm, k, gap, gap_extend=ext, ckpt_cols=cols,
                 rps=rps, slots=slots, device=device, **MODES[mode])
             tiles = checkpoint.Tiles(ck, text, pattern, sm, k)
-            for b, c, where in ((0, 1, "row 0"), (1, 0, "column 0"),
-                                (1, 1, "interior")):
+            for b, c, where in positions:
                 args, tkw = tiles.strip_args(b, c)
                 out, ms = timed(wavefront.wavefront_strip, *args, **tkw)
                 want, plain_ms = timed(wavefront.wavefront_strip_plain, *args,
@@ -4209,6 +4240,171 @@ def phase_batch_processes(procs):
     return {"wall_s": wall}
 
 
+# The pair models whose score() phase 33 runs, by mode.
+SCORE_MODELS = {"global": NeedlemanWunsch(), "local": SmithWaterman(),
+                "semi": SemiGlobal()}
+# Phase 34: the suite verbs at reduced sizes (keyword arguments of each
+# verb; maxlength and engines at their own defaults), then the headline.
+BENCH_VERBS = (
+    ("throughput", suite.throughput, dict(sizes=[(16384, 16384)])),
+    ("throughput --local", suite.throughput,
+     dict(local=True, sizes=[(32768, 4096)])),
+    ("latency", suite.latency, dict(sizes=[(4096, 4096)])),
+    ("batch --dna", suite.batch, dict(dna=True, pairs=[SCORE_WIDTH[0]])),
+    ("batch --dna --affine-extend 2", suite.batch,
+     dict(dna=True, pairs=[SCORE_WIDTH[0]], affine_extend=2)),
+    ("batch-e2e --dna --local", suite.batch_e2e,
+     dict(size=ALIGN_WIDTH[1], dna=True, local=True, pairs=[16384])),
+    ("maxlength", suite.maxlength, {}),
+    ("maxlength --engine tiled", suite.maxlength, dict(engine="tiled")),
+    ("engines", suite.engines, {}),
+)
+
+
+def score_pairs():
+    """Phase 4's bundled pairs, once each (the mode flags dropped):
+    (argv, request)."""
+    pairs = {}
+    for _, argv in MAIN_PATH:
+        argv = [a for a in argv
+                if a not in ("--global", "--local", "--semi-global")]
+        pairs.setdefault(tuple(argv), read_request(argv))
+    return list(pairs.items())
+
+
+def score_oracle(pairs):
+    """``oracle_fill``'s score of each pair in each mode."""
+    return {(argv, mode): bindings.oracle_fill(
+                ALGO[mode], req.text, req.pattern, req.score_matrix,
+                req.alphabet_size, req.gap_penalty)[1]
+            for argv, req in pairs for mode in SCORE_MODELS}
+
+
+def kernel_ms_since(start):
+    """Device ms of the ledger's launches from index ``start`` on."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for _, _, a, b in LEDGER[start:])
+
+
+def phase_score(pairs, oracle, wide, device="cuda"):
+    """Phase 33: the models' score() (K1 score-only, the checkpoint
+    engine's phase 1) on the card.  ``pairs`` and ``oracle`` are phase 4's
+    pairs and their oracle_fill scores; ``wide`` is (name, argv, mode,
+    the oracle's score-only fill, the same pair's align() wall or None)
+    for the full-width pairs.  Every score equal to the oracle's, K1
+    launched a strip a call and no plain version run.  Returns the walls
+    and kernel times of the wide pairs."""
+    reset_launches()
+    with plain_versions_forbidden(PAIR_PLAIN):
+        for argv, req in pairs:
+            for mode, model in SCORE_MODELS.items():
+                got = model.score(req.text, req.pattern, req.score_matrix,
+                                  req.alphabet_size, req.gap_penalty,
+                                  device=device)
+                want = oracle[argv, mode]
+                check(got == want, f"score() {mode} {' '.join(argv)}: {got}, "
+                                   f"oracle_fill {want}")
+            log(f"score() of {' '.join(argv)} ({len(req.text)} x "
+                f"{len(req.pattern)}): global, local and semi-global each "
+                f"equal to oracle_fill's")
+        small = launches()
+        check(small["K1"] >= 3 * len(pairs) and small["K2"] == 0,
+              f"score() on phase 4's pairs: launches {small}")
+        rows = {}
+        for name, argv, mode, want, align_wall in wide:
+            req = read_request(argv)
+            m = len(req.pattern)
+            rps, slots = checkpoint._pick_geometry(m, None, None)
+            strips = -(-m // (rps * slots))
+            before, first = launches(), len(LEDGER)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = SCORE_MODELS[mode].score(
+                req.text, req.pattern, req.score_matrix, req.alphabet_size,
+                req.gap_penalty, device=device)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            kernel_ms = kernel_ms_since(first)
+            delta = {k: v - before[k] for k, v in launches().items()}
+            want = want()
+            want = want[0] if isinstance(want, tuple) else want
+            check(got == want, f"score() {mode} on the {name}: {got}, the "
+                               f"oracle's score-only fill {want}")
+            check(delta == {"K1": strips, "K2": 0},
+                  f"score() {mode} on the {name}: launches {delta}, not "
+                  f"{strips} K1 strips")
+            beside = (f"; align() of the pair through -g, global, "
+                      f"{align_wall:.3f} s" if align_wall else "")
+            log(f"score() {mode} on the {name} ({m} x {len(req.text)}, rps "
+                f"{rps} x {slots} slots): {got} == the oracle's score-only "
+                f"fill; wall {wall:.3f} s, {strips} K1 strips, "
+                f"{kernel_ms:.2f} ms of K1{beside}")
+            rows[f"{name} {mode}"] = {"wall_s": wall, "kernel_ms": kernel_ms,
+                                      "strips": strips, "score": got}
+    return rows
+
+
+def phase_bench(procs, sw):
+    """Phase 34: each suite verb at a reduced size on the card (the
+    kernels' launches counted, no plain version run), maxlength's two
+    engines and score() on one pair, then the headline in a process of
+    its own, its last line parsed, beside phase 8's K3."""
+    counters = (("K1", wavefront.wavefront_strip),
+                ("K2", walk.walk_skewed_window),
+                ("K3-score", batch_fill.batch_score),
+                ("K3-dirs", batch_fill.batch_fill_dirs),
+                ("K4", batch_traceback.batch_walk),
+                ("K5", strip_fill.strip_fill))
+    wanted = {"throughput": {"K1"}, "latency": {"K1", "K2"},
+              "batch": {"K3-score"}, "batch-e2e": {"K3-dirs", "K4"},
+              "maxlength": {"K1"}, "maxlength --engine tiled": {"K5"},
+              "engines": {"K1", "K5"}}
+    rows = {}
+    with plain_versions_forbidden(PAIR_PLAIN + BATCH_PLAIN + STRIP_PLAIN):
+        for label, verb, kwargs in BENCH_VERBS:
+            before = {name: fn.launches for name, fn in counters}
+            t0 = time.time()
+            rows[label] = verb(**kwargs)
+            wall = time.time() - t0
+            delta = {name: fn.launches - before[name]
+                     for name, fn in counters}
+            need = wanted.get(label, wanted[label.split(" --")[0]])
+            check(all(delta[name] > 0 for name in need),
+                  f"suite {label}: launches {delta}, not {sorted(need)}")
+            log(f"suite {label}: {wall:.1f} s, launches "
+                f"{json.dumps({k: v for k, v in delta.items() if v})}")
+        length = rows["maxlength"][0]["length"]
+        (_, text, pattern), = suite.maxlength_pairs([length])
+        scores = {row[0]["engine"]: row[0]["score"] for row in (
+            rows["maxlength"], rows["maxlength --engine tiled"])}
+        model = SmithWaterman().score(text, pattern, DNA_5_4, 4, suite.GAP)
+        check(scores["wavefront"] == scores["tiled"] == model,
+              f"maxlength {length}: K1 {scores['wavefront']}, K5 "
+              f"{scores['tiled']}, score() {model}")
+        log(f"maxlength {length} x {length}: K1 (wavefront_fill, score "
+            f"only) and K5 (tiled_fill_score) both score {model}, as "
+            f"SmithWaterman.score()")
+    t0 = time.time()
+    rc, out, err = procs.start([sys.executable, "-m",
+                                "seqalign_torch.bench.headline"])()
+    wall = time.time() - t0
+    check(rc == 0, f"headline: rc {rc}\n{err[-3000:]}")
+    record = json.loads(out.strip().splitlines()[-1])
+    check(set(record) == {"metric", "value", "unit", "vs_baseline"}
+          and record["metric"] == "sw_batch_fill"
+          and record["unit"] == "GCUPS" and record["value"] > 0,
+          f"headline: last line {record}")
+    b, n, m, _ = SCORE_WIDTH
+    k3_ms = sw["K3-score"]["ms"]
+    log(f"headline (python -m seqalign_torch.bench.headline, {wall:.1f} s): "
+        f"{json.dumps(record)}; {err.strip().splitlines()[-1]}; phase 8's "
+        f"K3 on the 512 x 639 bucket: {k3_ms:.3f} ms, "
+        f"{b * n * m / k3_ms / 1e6:.1f} GCUPS of the workload's cells")
+    rows["headline"] = record
+    rows["headline_wall_s"] = wall
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4236,6 +4432,14 @@ def run(procs):
     long_score = in_thread(
         lambda: bindings.oracle_fill_affine(
             0, long_pair.text, long_pair.pattern,
+            layout.pack_score_matrix(long_pair.score_matrix,
+                                     long_pair.alphabet_size),
+            long_pair.alphabet_size, long_pair.gap_penalty,
+            long_pair.gap_penalty)[0])
+    # Its local score for phase 33.
+    long_local = in_thread(
+        lambda: bindings.oracle_fill_affine(
+            1, long_pair.text, long_pair.pattern,
             layout.pack_score_matrix(long_pair.score_matrix,
                                      long_pair.alphabet_size),
             long_pair.alphabet_size, long_pair.gap_penalty,
@@ -4362,6 +4566,8 @@ def run(procs):
     strip_outputs = [procs.start(port_cli("-c", argv)) for argv in STRIP_BIG]
     aff_cases = affine_ckpt_cases()
     aff_expected = in_thread(affine_ckpt_oracle, aff_cases)
+    score_ps = score_pairs()
+    score_expected = in_thread(score_oracle, score_ps)
 
     t0 = begin_phase("2-3")
     k1_err, k2_err = phase_kernels()
@@ -4508,6 +4714,18 @@ def run(procs):
     t0 = begin_phase("32")
     bp = phase_batch_processes(procs)
     log(f"phase 32 (data parallel across {WORKERS} processes): "
+        f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("33")
+    sc = phase_score(score_ps, score_expected(), (
+        ("full-width pair", FULL_WIDTH, "global", oracle_score,
+         fw["wall_s"]),
+        ("full-width pair", FULL_WIDTH, "local", local_best, None),
+        ("long pair", LONG_PAIR, "global", long_score, lp["wall_s"]),
+        ("long pair", LONG_PAIR, "local", long_local, None)))
+    log(f"phase 33 (score() on the card): {time.time() - t0:.1f} s")
+    t0 = begin_phase("34")
+    bench = phase_bench(procs, sw)
+    log(f"phase 34 (the suite verbs and the headline): "
         f"{time.time() - t0:.1f} s")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
@@ -4809,6 +5027,8 @@ def run(procs):
                          "affine_score_wall_ms": asw["wall_ms"],
                          "affine_align_wall_ms": aaw["wall_ms"]},
         "workers_wall_s": bp["wall_s"]}}))
+    log(json.dumps({"score": sc}))
+    log(json.dumps({"bench": bench}))
     check(len(REPEATED) == 6, f"K1 repeat checks: {REPEATED}")
     log(json.dumps({"k1_repeats": [
         {"what": what, "runs": REPEATS, "ctas": ctas, "sms": sms}
@@ -4824,6 +5044,10 @@ def run(procs):
     workload = ledger_sums(WORKLOAD_PHASES)
     for entry in summary:
         kid = entry["name"].split()[0]
+        # score() and the suite verbs (phases 33-34) by the ledger's rows.
+        entry["launches"] += sum(
+            ledger.get(kid, {}).get("phases", {}).get(p, [0])[0]
+            for p in ("33", "34"))
         entry["main_path_ms"] = ledger.get(kid, {}).get("ms")
         entry["workload_ms"] = workload.get(kid, {}).get("ms")
     log(json.dumps({"launch_ledger": ledger}))

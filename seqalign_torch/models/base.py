@@ -30,6 +30,23 @@ class PairAligner:
     route, the checkpoint engine or the strip engine."""
 
     local: bool = False
+    semi: bool = False
+
+    def score(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
+              device=None) -> int:
+        """Optimal score alone (linear gaps), on ``device`` (default
+        ``config.device()``): the checkpoint engine's phase 1, K1
+        score-only, whose trackers give the mode's score (local: the best
+        over every row; semi-global: row m's; global: S[m, n]).  The JAX
+        ``score()`` runs its XLA scan engine whatever the engine setting,
+        so no route is chosen here either."""
+        return checkpoint.checkpointed_fill(
+            np.asarray(text, dtype=np.int32),
+            np.asarray(pattern, dtype=np.int32), score_matrix,
+            alphabet_size, gap_penalty, local=self.local, semi=self.semi,
+            ckpt_cols=checkpoint.DEFAULT_CKPT_COLS,
+            device=device or config.device(),
+        ).score
 
     def align(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
               gap_extend=None, device=None):

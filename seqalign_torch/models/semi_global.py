@@ -14,6 +14,7 @@ from .base import PairAligner
 
 class SemiGlobal(PairAligner):
     local = False
+    semi = True
 
     def align(self, text, pattern, score_matrix, alphabet_size, gap_penalty,
               gap_extend=None, device=None):

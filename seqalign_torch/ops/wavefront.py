@@ -497,14 +497,17 @@ def merge_local_best(rowmaxs, argjs, rows: int, rps: int, m: int,
 
 
 def wavefront_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
-                   local: bool = False, rps: int = ROWS_PER_SLOT,
-                   slots: int = SLOTS, device="cuda"):
+                   local: bool = False, with_dirs: bool = True,
+                   rps: int = ROWS_PER_SLOT, slots: int = SLOTS,
+                   device="cuda"):
     """Full single-pair fill through (rps*slots)-row strips run in order,
     each strip's bottom row feeding the next one's top row.
 
     Returns (score, best_i, best_j, words, steps_pad) where words is the
     host copy of the skewed direction words, (num_strips, steps_pad/16 *
-    rps, slots) int32.
+    rps, slots) int32, or None without ``with_dirs``.  K1 is score-only
+    only with column checkpoints, so the score-only fill asks for one
+    checkpoint column past the strip's steps and drops it.
     """
     text_np = np.asarray(text, dtype=np.int32)
     pattern_np = np.asarray(pattern, dtype=np.int32)
@@ -522,10 +525,15 @@ def wavefront_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
     sm_dev = sm.to(device)
     bottom = layout.top_row(steps_pad, gap, local, device)
 
-    words = np.empty(
-        (num_strips, (steps_pad // DIR_STEPS_PER_WORD) * rps, slots),
-        dtype=np.int32,
-    )
+    words, ckpt_every = None, 0
+    if with_dirs:
+        words = np.empty(
+            (num_strips, (steps_pad // DIR_STEPS_PER_WORD) * rps, slots),
+            dtype=np.int32,
+        )
+    else:
+        ckpt_every = 1 << (max(steps_pad, slots + DIR_STEPS_PER_WORD)
+                           - 1).bit_length()
     rowmaxs, argjs, snaps = [], [], []
     for c in range(num_strips):
         i0 = c * rows
@@ -534,9 +542,11 @@ def wavefront_fill(text, pattern, score_matrix, k_alpha: int, gap: int,
         ).to(device)
         dirs, bot_out, rowmax, argj, snap, _ = wavefront_strip(
             ts_dev, bottom, pat_slots, sm_dev, gap, n, m, i0,
-            k_alpha=k_alpha, local=local, rps=rps, slots=slots,
+            k_alpha=k_alpha, local=local, with_dirs=with_dirs, rps=rps,
+            ckpt_every=ckpt_every, slots=slots,
         )
-        words[c] = dirs.reshape(-1, slots).cpu().numpy()
+        if with_dirs:
+            words[c] = dirs.reshape(-1, slots).cpu().numpy()
         rowmaxs.append(rowmax.reshape(rps, slots).cpu().numpy())
         argjs.append(argj.reshape(rps, slots).cpu().numpy())
         snaps.append(snap.reshape(-1).cpu().numpy())

@@ -72,7 +72,11 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.ops.strip_fill", "seqalign_torch.ops.tiled",
                  "seqalign_torch.probes", "seqalign_torch.probes.dpx16",
                  "seqalign_torch.probes.walk_costs",
-                 "seqalign_torch.probes.batch_walk_shapes"):
+                 "seqalign_torch.probes.batch_walk_shapes",
+                 "seqalign_torch.bench", "seqalign_torch.bench.timing",
+                 "seqalign_torch.bench.suite",
+                 "seqalign_torch.bench.headline",
+                 "seqalign_torch.bench.batch_e2e"):
         assert name in got["modules"]
     assert got["foreign"] == []
     assert got["launches"] == [0] * 12
