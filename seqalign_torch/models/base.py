@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import config
+from .. import config, tracing
 from ..native import bindings
 from ..ops import checkpoint, direct, layout, strip_fill, tiled, wavefront
 from ..ops.traceback import run_device_traceback
@@ -180,6 +180,7 @@ class PairAligner:
                       gap_penalty, device, semi: bool = False,
                       gap_extend=None):
         """Fill, best-cell merge and walk on the device (ops/direct.py)."""
+        tracing.annotate("route", "direct")
         score, _, _, aligned_text, aligned_pattern, start_t, start_p = (
             direct.direct_align(
                 text, pattern, score_matrix, alphabet_size, gap_penalty,
@@ -195,6 +196,7 @@ class PairAligner:
                           gap_extend=None):
         """Boundary-checkpoint fill and path-tile traceback on the device
         (ops/checkpoint.py), for pairs of any length."""
+        tracing.annotate("route", "checkpoint")
         score, _, _, aligned_text, aligned_pattern, start_t, start_p = (
             checkpoint.checkpointed_align(
                 text, pattern, score_matrix, alphabet_size, gap_penalty,
