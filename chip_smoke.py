@@ -363,11 +363,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 # Integer operations per cell of the linear fill: H = max(diag + s,
-# max(top, left) - gap) is 4; the 2-bit direction (two compares, two
-# selects, a shift and an or into the word) is 6.
-K1_OPS_PER_CELL = 10
-# Score-only (the checkpoint engine's phase 1): H alone, 4.
-K1_SCORE_OPS_PER_CELL = 4
+# max(top, left) - gap) is 4 and the substitution's table index 1 (as
+# K3's, K5's and cellbench/work.py's counts); the 2-bit direction (two
+# compares, two selects, a shift and an or into the word) is 6.
+K1_OPS_PER_CELL = 11
+# Score-only (the checkpoint engine's phase 1): H and the index, 5.
+K1_SCORE_OPS_PER_CELL = 5
 # Per move of the walk: the cell's slot, row and step (4), the word's
 # index (2), the 2 bits out of it (2), packing them (2), the i/j step (2).
 K2_OPS_PER_MOVE = 12
@@ -395,10 +396,9 @@ K3_AFFINE_DIRS_OPS_PER_CELL = K3_AFFINE_OPS_PER_CELL + 6 + 4
 # Affine K4, per move: as affine K2's walk.
 K4_AFFINE_OPS_PER_MOVE = K2_AFFINE_OPS_PER_MOVE
 
-# K5, per cell: the same recurrence as K1, and the substitution's table
-# index, as in K3: H (4) and the index (1); with words, the 2-bit
-# direction (6) besides.
-K5_SCORE_OPS_PER_CELL = K1_SCORE_OPS_PER_CELL + 1
+# K5, per cell: the same recurrence and table index as K1: H (4) and the
+# index (1); with words, the 2-bit direction (6) besides.
+K5_SCORE_OPS_PER_CELL = K1_SCORE_OPS_PER_CELL
 K5_OPS_PER_CELL = K5_SCORE_OPS_PER_CELL + 6
 
 DNA = ("data/dna/dna_01.txt", "data/dna/dna_02.txt")
@@ -807,11 +807,11 @@ def ptxas_summary(path):
     lines = []
     probes = []  # P2's instances, summarised in one line
     for name, stack, st, ld, regs in pattern.findall(text):
-        args = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+        args = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)ELb(\d)ELb(\d)E",
                          name)
         if args:
             label = (f"<rps {args[1]}, lanes/slot {args[2]}, steps/iteration "
-                     f"{args[3]}, track {args[4]}, dirs {args[5]}, "
+                     f"{args[3]}, mode {args[4]}, dirs {args[5]}, "
                      f"affine {args[6]}>")
         elif args := re.search(r"strip_band_kernelILi(\d+)ELi(\d+)ELb(\d)"
                                r"ELb(\d)E", name):

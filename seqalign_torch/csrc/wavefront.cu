@@ -44,15 +44,31 @@
 // gives a left column's E beside left_in.
 //
 // What bounds it on an H100: the DP is a chain of dependent integer
-// max/add/select operations, about 10 per cell with words and 4 for the
-// score alone (affine: about 19 and 9), with no tensor-core form; the
-// 2-bit words are the only bytes it must write (a quarter of a byte per
-// cell, half a byte affine; the checkpoints are 4 or 8 bytes per C
-// cells), so the int32 issue rate bounds it, not memory.  Within a step
-// the rps rows of a slot are one dependent chain, so a lane's step costs
-// the chain's latency and the loop's own work; the card's rate needs
-// many such chains in flight on every SM, and that work spread over
-// several steps.
+// max/add/select operations, 11 per cell with words and 5 for the score
+// alone, the table index counted (affine: about 20 and 10), with no
+// tensor-core form; the 2-bit words are the only bytes it must write (a
+// quarter of a byte per cell, half a byte affine; the checkpoints are 4
+// or 8 bytes per C cells), so the int32 issue rate bounds it, not memory.
+// Within a step the rps rows of a slot are one dependent chain, so a
+// lane's step costs the chain's latency and the loop's own work; the
+// card's rate needs many such chains in flight on every SM, and that work
+// spread over several steps.
+//
+// The cell (cell() below) runs on Hopper's DPX instructions, as K3's
+// does.  Score-only, H = max(top - gap, max(left - gap, diag + s)) is two
+// add-max instructions (VIADDMNMX), one of them on the chain from the row
+// above; with words, max(left, top) and LEFT's win (left >= top) come
+// from one __vibmax_s32 (a compare and a select in SASS), H = max(diag +
+// s, that - gap) from one add-max, and DIAG wins iff H > that - gap;
+// affine, E, F and the gap move are __vibmax_s32 whose predicates are the
+// run bits and LEFT's win.  The _relu forms floor local's H at 0, where
+// STOP is H == 0.  The mode (global, local, semi-global) is a template
+// parameter, so the floor, the STOP test and the trackers compile out
+// where they do not apply.  A lane runs a block whose columns are all
+// >= 1 (and, tracking, <= n; none global's n or a checkpoint's) on a
+// started path without the pre-start select, the range tests, the snap
+// and the checkpoints; the other blocks (the pipeline's first and last)
+// take the general path.
 //
 // The design: a strip is a chain of bands that spans the card.  A band
 // is one warp and owns the 32/SPLIT consecutive slots [s0, s0+32/SPLIT);
@@ -103,20 +119,22 @@
 // and so is resident already.  That holds for any grid and any residency,
 // without a cooperative launch.
 //
-// Registers: a lane holds rps/SPLIT rows of H, the pattern offsets, by
-// variant E, the word accumulators, the parked words and the trackers,
-// and SB values of each handed-on row; no block-wide launch bound caps
-// them, and ptxas spills nothing (chip_smoke.py checks every instance).
-// Shared memory holds the substitution matrix only.  SPLIT and SB are
-// fixed per (rps, variant) at the shape that measured fastest (split_of
-// and block_of below; probes/wavefront_shapes.py times every shape).  The
-// TPU captures checkpoints into vector scratch and flushes them once per
-// word group because it cannot scatter; here a lane stores its rows
+// Registers: a lane holds rps/SPLIT rows of H, its rows' pointers into
+// the score table, by variant E, the word accumulators, the parked words
+// and the trackers, and SB values of each handed-on row; no block-wide
+// launch bound caps them, and ptxas spills nothing (chip_smoke.py checks
+// every instance).  Shared memory holds the substitution matrix only.
+// SPLIT and SB are fixed per (rps, variant) at the shape that measured
+// fastest (shape_of below; probes/wavefront_shapes.py times every shape).
+// The TPU captures checkpoints into vector scratch and flushes them once
+// per word group because it cannot scatter; here a lane stores its rows
 // straight to global memory at the step its slot reaches a checkpoint
-// column.  Only the score-only variant has that test in its loop.
+// column, on the general path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "band_stream.cuh"
 #include "launch_error.cuh"
@@ -135,37 +153,94 @@ constexpr int kChunk = 256;  // steps come in whole blocks of this many
 // Scratch: kCounterWords int32, then the bands' H streams, then (affine)
 // their F streams, each (bands-1) x steps 64-bit words.  The counters:
 // the ticket at 0; the stream windows all bands loaded at 1, and the
-// loads that found no entry ready at 2; each CTA's SM + 1 at kSmOffset +
-// its ticket; each band's first and last iteration on the GPU's
-// nanosecond clock (its low 32 bits: when its top input for step 0 or 1
-// was there, and at its end) at kBandStart + band and kBandEnd + band.
-// probes/wavefront_shapes.py --trace reads them.
+// loads that found no entry ready at 2; the blocks all lanes ran on the
+// started path and on the general path, 64-bit, at kStarted and kGeneral;
+// each CTA's SM + 1 at kSmOffset + its ticket; each band's first and last
+// iteration on the GPU's nanosecond clock (its low 32 bits: when its top
+// input for step 0 or 1 was there, and at its end) at kBandStart + band
+// and kBandEnd + band.  probes/wavefront_shapes.py --trace reads them.
 constexpr int kCounterWords = 4096;
+constexpr int kStarted = 4;
+constexpr int kGeneral = 6;
 constexpr int kSmOffset = 1024;
 constexpr int kBandStart = 2048;
 constexpr int kBandEnd = 3072;
+constexpr int kGlobal = 0, kLocal = 1, kSemi = 2;  // the recurrence's mode
 
 // The shape of a launch, by rps and variant: the lanes a slot's rows are
-// split over (split_of) and the steps a lane runs an iteration (block_of).
-// Each is the fastest of splits 1, 2, 4 x blocks 1, 2, 4 at the main
-// path's shapes on an NVIDIA H100 80GB HBM3 at 700 W
-// (probes/wavefront_shapes.py --time; rps 1 and 2 take 1 x 4, the best at
-// rps 2 with words).  A longer chain a lane (fewer lanes) and a block of
-// more steps both cut the per-step overhead, and both lengthen the
-// pipeline's fill; the rps 16 words variant serves the full-width strip
-// and the checkpoint engine's 36,864-step tiles with one shape, the
-// strip's (4 x 4: 61.8 ms against 69.3 at 2 x 4; the tile 19.2 ms against
-// 16.0 at its best, 1 x 1).
-__host__ __device__ constexpr int split_of(int rps, bool dirs, bool affine) {
-  return rps >= 16 ? 4 : rps >= 8 ? 2 : (rps >= 4 && !dirs && !affine) ? 2
-                                                                         : 1;
+// split over and the steps a lane runs an iteration.  Each is the fastest
+// of splits 1, 2, 4 x blocks 1, 2, 4 at the main path's shapes on an
+// NVIDIA H100 80GB HBM3 at 700 W (probes/wavefront_shapes.py --time).  A
+// longer chain a lane (fewer lanes) and a block of more steps both cut the
+// per-step overhead, and both lengthen the pipeline's fill.  So the
+// checkpoint engine's tiles and the sequence-parallel chunks (from a left
+// column, 36,864 steps, two thirds of them the fill's at 4 x 4) take one
+// lane a slot and mostly one step a block, where a band's lanes run in
+// step (d = 0); local's trackers lengthen a lane's step, so its rps 8
+// words split wider.
+struct Shape {
+  int split, block;
+};
+
+__host__ __device__ constexpr Shape shape_of(int rps, bool dirs, bool affine,
+                                             bool local, bool left) {
+  if (left && rps >= 16) return {1, dirs || affine ? 1 : 4};
+  if (left && dirs && rps == 4) return {1, affine ? 1 : 4};
+  if (!dirs) return {rps >= 16 ? 4 : rps >= 8 && !affine ? 2 : 1, 4};
+  const int split = rps >= 16  ? 4
+                    : rps >= 8 ? (local && !affine ? 4 : 2)
+                    : rps >= 4 ? 2
+                               : 1;
+  return {split, affine && rps >= 8 ? 2 : 4};
 }
 
-__host__ __device__ constexpr int block_of(int rps, bool dirs, bool affine) {
-  return affine && (rps >= 16 || (rps >= 8 && !dirs)) ? 2 : 4;
+// One cell: H from the cell above (top), to its left and on its diagonal
+// (diag, and s the substitution's score), and with words its 2-bit
+// direction (dir); affine also its E and F from the left's E (e_in) and
+// the F above (f_in), and with words their run bits (run).  The values
+// are the recurrence's whether the slot has started or not: the caller
+// keeps a slot's left column (and E, and passes F on) until it starts.
+template <int MODE, bool DIRS, bool AFFINE>
+__device__ __forceinline__ int32_t cell(int32_t top, int32_t left,
+                                        int32_t diag, int32_t s, int gap,
+                                        int ext, int32_t e_in, int32_t f_in,
+                                        int32_t& e, int32_t& f, uint32_t& dir,
+                                        uint32_t& run) {
+  constexpr bool kRelu = MODE == kLocal;  // H floored at 0
+  int32_t h, gap_best;
+  bool is_left;  // LEFT beats TOP, ties included
+  if (!AFFINE && !DIRS) {
+    // max(top - gap, max(left - gap, diag + s)): one add-max on the
+    // chain from the row above.
+    const int32_t dl = __viaddmax_s32(left, -gap, diag + s);
+    return kRelu ? __viaddmax_s32_relu(top, -gap, dl)
+                 : __viaddmax_s32(top, -gap, dl);
+  }
+  if (!AFFINE) {
+    gap_best = __vibmax_s32(left, top, &is_left) - gap;
+  } else if (!DIRS) {
+    e = __viaddmax_s32(left, -gap, e_in - ext);
+    f = __viaddmax_s32(top, -gap, f_in - ext);
+    const int32_t de = __viaddmax_s32(diag, s, e);
+    return kRelu ? __vimax_s32_relu(de, f) : max(de, f);
+  } else {
+    bool e_opens, f_opens;  // opening the run >= extending it
+    e = __vibmax_s32(left - gap, e_in - ext, &e_opens);
+    f = __vibmax_s32(top - gap, f_in - ext, &f_opens);
+    gap_best = __vibmax_s32(e, f, &is_left);
+    run = static_cast<uint32_t>(!e_opens) |
+          (static_cast<uint32_t>(!f_opens) << 1);
+  }
+  h = kRelu ? __viaddmax_s32_relu(diag, s, gap_best)
+            : __viaddmax_s32(diag, s, gap_best);
+  // DIAG iff diag + s > gap_best, i.e. H > gap_best (local's H = 0, where
+  // H <= gap_best may not hold, is STOP).
+  dir = h > gap_best ? 1u : (is_left ? 0u : 2u);
+  if (kRelu && h == 0) dir = 3u;
+  return h;
 }
 
-template <int RPS, int SPLIT, int SB, bool TRACK, bool DIRS, bool AFFINE>
+template <int RPS, int SPLIT, int SB, int MODE, bool DIRS, bool AFFINE>
 __global__ void wavefront_strip_kernel(
     const int32_t* __restrict__ text, const int32_t* __restrict__ bottom_in,
     const int32_t* __restrict__ fbot_in, const int32_t* __restrict__ pattern,
@@ -177,7 +252,8 @@ __global__ void wavefront_strip_kernel(
     int32_t* __restrict__ snap, int32_t* __restrict__ ckpts,
     int32_t* __restrict__ ckpts_e, int32_t* __restrict__ counters,
     unsigned long long* __restrict__ streams, int steps, int slots, int k,
-    int gap, int ext, int n, int m, int i0, int local, int ckpt_every) {
+    int gap, int ext, int n, int m, int i0, int ckpt_every) {
+  constexpr bool TRACK = MODE != kGlobal;
   constexpr int RT = RPS / SPLIT;     // rows a lane
   constexpr int SPB = kWarp / SPLIT;  // slots a band
   // Iterations lane 31 runs behind lane 0 (d below), and iterations a
@@ -212,7 +288,7 @@ __global__ void wavefront_strip_kernel(
 
   // Column-0 value of DP row i (1-based), without a left column.
   auto boundary = [&](int i) -> int32_t {
-    if (local) return 0;
+    if (MODE == kLocal) return 0;
     if (AFFINE) return i == 0 ? 0 : -(gap + (i - 1) * ext);
     return -(gap * i);
   };
@@ -230,7 +306,10 @@ __global__ void wavefront_strip_kernel(
   uint32_t done[kParked ? RT : 1];
   uint32_t done2[kParked && AFFINE ? RT : 1];
   int done_row0 = -1;  // word row of done's first row; -1: nothing waits
-  int32_t pat[RT];
+  // Each row's row of the substitution table (its pattern letter's).
+  const int32_t* prow[RT];
+  // Each row's running maximum and its first column (local: every row,
+  // semi-global: row m; rows past m are dropped at the end).
   int32_t best_v[TRACK ? RT : 1];
   int32_t best_j[TRACK ? RT : 1];
   int32_t snap_v = kNegInf;
@@ -248,7 +327,7 @@ __global__ void wavefront_strip_kernel(
       E[rr] = left_e != nullptr ? left_e[(r + 1) * slots + s] : kNegHalf;
       if (DIRS) word2[rr] = 0;
     }
-    pat[rr] = (pattern[r * slots + s] & (kMaxAlpha - 1)) * k;
+    prow[rr] = sub + (pattern[r * slots + s] & (kMaxAlpha - 1)) * k;
     if (TRACK) {
       best_v[rr] = kNegInf;
       best_j[rr] = 0;
@@ -289,13 +368,15 @@ __global__ void wavefront_strip_kernel(
   int wbase = 0, wlen = 0;
   int32_t wv = 0, wf = 0;
   int loads = 0, misses = 0;  // stream windows loaded; loads none ready
+  int started_blocks = 0;     // blocks run on the started path
   // The text letters of the lane's next block (text[t - s], 0 before the
   // text), loaded an iteration ahead.
   int letter[SB];
 #pragma unroll
   for (int x = 0; x < SB; ++x) letter[x] = x - s >= 0 ? text[x - s] : 0;
-  // A slot's snap row: S[m, n] is in row snap_rr of this lane, if any.
-  const int snap_rr = m - 1 - ibase - r0;
+  // A slot's snap row (global: S[m, n]) or tracked row (semi-global: row
+  // m) is row m_rr of this lane, if any.
+  const int m_rr = m - 1 - ibase - r0;
 
   const int blocks = steps / SB;
   const int iters = blocks + kLastLag;
@@ -377,98 +458,98 @@ __global__ void wavefront_strip_kernel(
         const int tn = (blk + 1) * SB + x - s;  // next block's letter
         if (blk + 1 < blocks && tn >= 0) letter[x] = text[tn];
       }
+      const int j0 = blk * SB - s + 1;  // the block's first column
+      const int j1 = j0 + SB - 1;       // and its last
+      // The block's steps, on the started path (every column of the
+      // block is >= 1 and, tracking, <= n, and none is global's n or a
+      // checkpoint's) or the general one.
+      auto run_block = [&](auto started_path) {
+        constexpr bool kAll = decltype(started_path)::value;
 #pragma unroll
-      for (int x = 0; x < SB; ++x) {
-        const int t = blk * SB + x;
-        const int j = t - s + 1;
-        const bool started = j >= 1;
-        int32_t top = topv[x];
-        int32_t diag_src = x == 0 ? topsh : topv[x - 1];
-        int32_t f_above = topf[x];
-#pragma unroll
-        for (int rr = 0; rr < RT; ++rr) {
-          const int32_t diag = diag_src + sub[pat[rr] + w[x]];
-          const int32_t left = H[rr];
-          int32_t gap_best, e_ext = 0, e_open = 0, e_new = 0, f_ext = 0,
-                            f_open = 0, f_new = 0;
-          if (AFFINE) {
-            e_ext = E[rr] - ext;
-            e_open = left - gap;
-            e_new = max(e_ext, e_open);
-            f_ext = f_above - ext;
-            f_open = top - gap;
-            f_new = max(f_ext, f_open);
-            gap_best = max(e_new, f_new);
-          } else {
-            gap_best = max(top, left) - gap;
-          }
-          const int32_t best = max(diag, gap_best);
-          const int32_t newval = local ? max(best, 0) : best;
-          const int32_t cur = started ? newval : left;
-          if (DIRS) {
-            const bool left_wins = AFFINE ? e_new >= f_new : left >= top;
-            int32_t dir = diag > gap_best ? 1 : (left_wins ? 0 : 2);
-            if (local && best <= 0) dir = 3;
-            word[rr] = (word[rr] >> 2) | (static_cast<uint32_t>(dir) << 30);
-            if (AFFINE) {
-              const uint32_t d2 = static_cast<uint32_t>(e_ext > e_open) |
-                                  (static_cast<uint32_t>(f_ext > f_open) << 1);
-              word2[rr] = (word2[rr] >> 2) | (d2 << 30);
-            }
-          }
-          if (AFFINE && started) {
-            E[rr] = e_new;
-            f_above = f_new;
-          }
-          if (TRACK) {
-            const int i = ibase + r0 + rr + 1;
-            const bool row_ok = local ? i <= m : i == m;
-            if (started && j <= n && row_ok && newval > best_v[rr]) {
-              best_v[rr] = newval;
-              best_j[rr] = j;
-            }
-          }
-          diag_src = left;
-          top = cur;
-          H[rr] = cur;
-        }
-        if (!TRACK && j == n) {
+        for (int x = 0; x < SB; ++x) {
+          const int t = blk * SB + x;
+          const int j = j0 + x;
+          const bool started = kAll || j >= 1;
+          int32_t top = topv[x];
+          int32_t diag_src = x == 0 ? topsh : topv[x - 1];
+          int32_t f_above = topf[x];
 #pragma unroll
           for (int rr = 0; rr < RT; ++rr) {
-            if (rr == snap_rr) snap_v = H[rr];
-          }
-        }
-        pub[x] = H[RT - 1];
-        pub_f[x] = f_above;
-        if (!DIRS && started && (j & ckpt_mask) == 0) {
-          const int64_t row0 =
-              static_cast<int64_t>((j >> ckpt_shift) - 1) * RPS + r0;
-#pragma unroll
-          for (int rr = 0; rr < RT; ++rr) {
-            ckpts[(row0 + rr) * slots + s] = H[rr];
-            if (AFFINE) ckpts_e[(row0 + rr) * slots + s] = E[rr];
-          }
-        }
-        if (DIRS && (t & 15) == 15) {
-          if (kParked) {
-#pragma unroll
-            for (int rr = 0; rr < RT; ++rr) {
-              done[rr] = word[rr];
-              if (AFFINE) done2[rr] = word2[rr];
+            const int32_t left = H[rr];
+            int32_t e_new = 0, f_new = 0;
+            uint32_t dir = 0, run = 0;
+            const int32_t h = cell<MODE, DIRS, AFFINE>(
+                top, left, diag_src, prow[rr][w[x]], gap, ext,
+                AFFINE ? E[rr] : 0, f_above, e_new, f_new, dir, run);
+            const int32_t cur = started ? h : left;
+            if (DIRS) {
+              word[rr] = __funnelshift_r(word[rr], dir, 2);
+              if (AFFINE) word2[rr] = __funnelshift_r(word2[rr], run, 2);
             }
-            done_row0 = (t >> 4) * RPS + r0;
-          } else {
-            const int64_t row0 = static_cast<int64_t>(t >> 4) * RPS + r0;
+            if (AFFINE && started) {
+              E[rr] = e_new;
+              f_above = f_new;
+            }
+            if (TRACK && (MODE == kLocal || rr == m_rr)) {
+              if (kAll) {
+                bool keep;  // the best so far >= h: the first column stays
+                best_v[rr] = __vibmax_s32(best_v[rr], h, &keep);
+                best_j[rr] = keep ? best_j[rr] : j;
+              } else if (started && j <= n && h > best_v[rr]) {
+                best_v[rr] = h;
+                best_j[rr] = j;
+              }
+            }
+            diag_src = left;
+            top = cur;
+            H[rr] = cur;
+          }
+          if (!kAll && !TRACK && j == n) {
 #pragma unroll
             for (int rr = 0; rr < RT; ++rr) {
-              dirs[(row0 + rr) * slots + s] = static_cast<int32_t>(word[rr]);
-              if (AFFINE) {
-                dirs2[(row0 + rr) * slots + s] =
-                    static_cast<int32_t>(word2[rr]);
+              if (rr == m_rr) snap_v = H[rr];
+            }
+          }
+          pub[x] = H[RT - 1];
+          pub_f[x] = f_above;
+          if (!kAll && !DIRS && started && (j & ckpt_mask) == 0) {
+            const int64_t row0 =
+                static_cast<int64_t>((j >> ckpt_shift) - 1) * RPS + r0;
+#pragma unroll
+            for (int rr = 0; rr < RT; ++rr) {
+              ckpts[(row0 + rr) * slots + s] = H[rr];
+              if (AFFINE) ckpts_e[(row0 + rr) * slots + s] = E[rr];
+            }
+          }
+          if (DIRS && (t & 15) == 15) {
+            if (kParked) {
+#pragma unroll
+              for (int rr = 0; rr < RT; ++rr) {
+                done[rr] = word[rr];
+                if (AFFINE) done2[rr] = word2[rr];
+              }
+              done_row0 = (t >> 4) * RPS + r0;
+            } else {
+              const int64_t row0 = static_cast<int64_t>(t >> 4) * RPS + r0;
+#pragma unroll
+              for (int rr = 0; rr < RT; ++rr) {
+                dirs[(row0 + rr) * slots + s] =
+                    static_cast<int32_t>(word[rr]);
+                if (AFFINE) {
+                  dirs2[(row0 + rr) * slots + s] =
+                      static_cast<int32_t>(word2[rr]);
+                }
               }
             }
           }
         }
+      };
+      if (j0 >= 1 && (TRACK ? j1 <= n : j1 < n || j0 > n) &&
+          (DIRS || ((j0 - 1) >> ckpt_shift) == (j1 >> ckpt_shift))) {
+        run_block(std::true_type());
+        ++started_blocks;
+      } else {
+        run_block(std::false_type());
       }
       topsh = topv[SB - 1];
       if (lane == kWarp - 1) {
@@ -500,18 +581,25 @@ __global__ void wavefront_strip_kernel(
     }
   }
 
+  const int started_all = __reduce_add_sync(kFull, started_blocks);
   if (lane == 0) {
     counters[kBandEnd + band] = clock_ns();
     atomicAdd(counters + 1, loads);
     atomicAdd(counters + 2, misses);
+    atomicAdd(reinterpret_cast<unsigned long long*>(counters + kStarted),
+              static_cast<unsigned long long>(started_all));
+    atomicAdd(reinterpret_cast<unsigned long long*>(counters + kGeneral),
+              static_cast<unsigned long long>(kWarp * blocks - started_all));
   }
   // snap: the lane holding row m of its slot, else the slot's first lane.
   const int mrow = m - 1 - ibase;
   if (part == (mrow >= 0 && mrow < RPS ? mrow / RT : 0)) snap[s] = snap_v;
 #pragma unroll
   for (int rr = 0; rr < RT; ++rr) {
-    rowmax[(r0 + rr) * slots + s] = TRACK ? best_v[rr] : kNegInf;
-    argj[(r0 + rr) * slots + s] = TRACK ? best_j[rr] : 0;
+    const int i = ibase + r0 + rr + 1;
+    const bool row_ok = TRACK && (MODE == kLocal ? i <= m : i == m);
+    rowmax[(r0 + rr) * slots + s] = row_ok ? best_v[rr] : kNegInf;
+    argj[(r0 + rr) * slots + s] = row_ok ? best_j[rr] : 0;
   }
 }
 
@@ -534,82 +622,95 @@ struct Args {
   int32_t* ckpts_e;
   int32_t* counters;
   unsigned long long* streams;
-  int steps, slots, k, gap, ext, n, m, i0, local, ckpt_every;
+  int steps, slots, k, gap, ext, n, m, i0, ckpt_every;
 };
 
-template <int RPS, int SPLIT, int SB, bool TRACK, bool DIRS, bool AFFINE>
+template <int RPS, int SPLIT, int SB, int MODE, bool DIRS, bool AFFINE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   // One CTA of SPLIT warps (SPLIT bands) for each 32 slots.
-  wavefront_strip_kernel<RPS, SPLIT, SB, TRACK, DIRS, AFFINE>
+  wavefront_strip_kernel<RPS, SPLIT, SB, MODE, DIRS, AFFINE>
       <<<a.slots / kWarp, SPLIT * kWarp, 0, stream>>>(
           a.text, a.bottom_in, a.fbot_in, a.pattern, a.score_matrix,
           a.left_in, a.left_e, a.dirs, a.dirs2, a.bottom_out, a.fbot_out,
           a.rowmax, a.argj, a.snap, a.ckpts, a.ckpts_e, a.counters,
           a.streams, a.steps, a.slots, a.k, a.gap, a.ext, a.n, a.m, a.i0,
-          a.local, a.ckpt_every);
+          a.ckpt_every);
   return cudaGetLastError();
 }
 
-template <int RPS, int SPLIT, int SB, bool DIRS, bool AFFINE>
-cudaError_t launch_track(const Args& a, bool track, cudaStream_t stream) {
-  return track ? launch<RPS, SPLIT, SB, true, DIRS, AFFINE>(a, stream)
-               : launch<RPS, SPLIT, SB, false, DIRS, AFFINE>(a, stream);
-}
-
 #ifdef SA_WAVEFRONT_ALL_SHAPES
-template <int RPS, int SPLIT, bool DIRS, bool AFFINE>
-cudaError_t launch_block(const Args& a, int block, bool track,
-                         cudaStream_t stream) {
+template <int RPS, int SPLIT, int MODE, bool DIRS, bool AFFINE>
+cudaError_t launch_block(const Args& a, int block, cudaStream_t stream) {
   switch (block) {
-    case 1: return launch_track<RPS, SPLIT, 1, DIRS, AFFINE>(a, track, stream);
-    case 2: return launch_track<RPS, SPLIT, 2, DIRS, AFFINE>(a, track, stream);
-    case 4: return launch_track<RPS, SPLIT, 4, DIRS, AFFINE>(a, track, stream);
+    case 1: return launch<RPS, SPLIT, 1, MODE, DIRS, AFFINE>(a, stream);
+    case 2: return launch<RPS, SPLIT, 2, MODE, DIRS, AFFINE>(a, stream);
+    case 4: return launch<RPS, SPLIT, 4, MODE, DIRS, AFFINE>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 #endif
 
-// The variant's own shape (split_of, block_of), or with
-// SA_WAVEFRONT_ALL_SHAPES (probes/wavefront_shapes.py) any split of 1, 2, 4
-// that divides RPS and any block of 1, 2, 4.
-template <int RPS, bool DIRS, bool AFFINE>
-cudaError_t launch_shape(const Args& a, int split, int block, bool track,
-                         cudaStream_t stream) {
-  constexpr int kSplit = split_of(RPS, DIRS, AFFINE);
-  constexpr int kBlock = block_of(RPS, DIRS, AFFINE);
-  if (split == kSplit && block == kBlock) {
-    return launch_track<RPS, kSplit, kBlock, DIRS, AFFINE>(a, track, stream);
+// The variant's shapes in code (shape_of, with and without a left
+// column), or with SA_WAVEFRONT_ALL_SHAPES (probes/wavefront_shapes.py) any
+// split of 1, 2, 4 that divides RPS and any block of 1, 2, 4.
+template <int RPS, bool DIRS, bool AFFINE, int MODE>
+cudaError_t launch_in_mode(const Args& a, int split, int block,
+                           cudaStream_t stream) {
+  constexpr Shape kOwn = shape_of(RPS, DIRS, AFFINE, MODE == kLocal, false);
+  constexpr Shape kLeft = shape_of(RPS, DIRS, AFFINE, MODE == kLocal, true);
+  if (split == kOwn.split && block == kOwn.block) {
+    return launch<RPS, kOwn.split, kOwn.block, MODE, DIRS, AFFINE>(a, stream);
+  }
+  if (split == kLeft.split && block == kLeft.block) {
+    return launch<RPS, kLeft.split, kLeft.block, MODE, DIRS, AFFINE>(a,
+                                                                     stream);
   }
 #ifdef SA_WAVEFRONT_ALL_SHAPES
   if (split == 1) {
-    return launch_block<RPS, 1, DIRS, AFFINE>(a, block, track, stream);
+    return launch_block<RPS, 1, MODE, DIRS, AFFINE>(a, block, stream);
   }
   if constexpr (RPS % 2 == 0) {
     if (split == 2) {
-      return launch_block<RPS, 2, DIRS, AFFINE>(a, block, track, stream);
+      return launch_block<RPS, 2, MODE, DIRS, AFFINE>(a, block, stream);
     }
   }
   if constexpr (RPS % 4 == 0) {
     if (split == 4) {
-      return launch_block<RPS, 4, DIRS, AFFINE>(a, block, track, stream);
+      return launch_block<RPS, 4, MODE, DIRS, AFFINE>(a, block, stream);
     }
   }
 #endif
   return cudaErrorInvalidValue;
 }
 
+template <int RPS, bool DIRS, bool AFFINE>
+cudaError_t launch_shape(const Args& a, int split, int block, int mode,
+                         cudaStream_t stream) {
+  switch (mode) {
+    case kLocal:
+      return launch_in_mode<RPS, DIRS, AFFINE, kLocal>(a, split, block,
+                                                       stream);
+    case kSemi:
+      return launch_in_mode<RPS, DIRS, AFFINE, kSemi>(a, split, block,
+                                                      stream);
+    default:
+      return launch_in_mode<RPS, DIRS, AFFINE, kGlobal>(a, split, block,
+                                                        stream);
+  }
+}
+
 // Words exactly when there are no checkpoints (the score-only variant).
 template <int RPS>
-cudaError_t launch_variant(const Args& a, int split, int block, bool track,
+cudaError_t launch_variant(const Args& a, int split, int block, int mode,
                            bool affine, cudaStream_t stream) {
   const bool dirs = a.ckpt_every == 0;
   if (affine) {
-    return dirs ? launch_shape<RPS, true, true>(a, split, block, track, stream)
-                : launch_shape<RPS, false, true>(a, split, block, track,
+    return dirs ? launch_shape<RPS, true, true>(a, split, block, mode, stream)
+                : launch_shape<RPS, false, true>(a, split, block, mode,
                                                  stream);
   }
-  return dirs ? launch_shape<RPS, true, false>(a, split, block, track, stream)
-              : launch_shape<RPS, false, false>(a, split, block, track,
+  return dirs ? launch_shape<RPS, true, false>(a, split, block, mode, stream)
+              : launch_shape<RPS, false, false>(a, split, block, mode,
                                                 stream);
 }
 
@@ -655,15 +756,15 @@ int run(const int32_t* text, const int32_t* bottom_in,
                left_e, dirs, dirs2, bottom_out, fbot_out, rowmax, argj, snap,
                ckpts, ckpts_e, counters,
                reinterpret_cast<unsigned long long*>(counters + kCounterWords),
-               steps, slots, k, gap, ext, n, m, i0, local, ckpt_every};
-  const bool track = local || semi;
+               steps, slots, k, gap, ext, n, m, i0, ckpt_every};
+  const int mode = local ? kLocal : semi ? kSemi : kGlobal;
   const bool aff = affine != 0;
   switch (rps) {
-    case 1: return launch_variant<1>(a, split, block, track, aff, s);
-    case 2: return launch_variant<2>(a, split, block, track, aff, s);
-    case 4: return launch_variant<4>(a, split, block, track, aff, s);
-    case 8: return launch_variant<8>(a, split, block, track, aff, s);
-    case 16: return launch_variant<16>(a, split, block, track, aff, s);
+    case 1: return launch_variant<1>(a, split, block, mode, aff, s);
+    case 2: return launch_variant<2>(a, split, block, mode, aff, s);
+    case 4: return launch_variant<4>(a, split, block, mode, aff, s);
+    case 8: return launch_variant<8>(a, split, block, mode, aff, s);
+    case 16: return launch_variant<16>(a, split, block, mode, aff, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -672,13 +773,17 @@ int run(const int32_t* text, const int32_t* bottom_in,
 
 // Lanes a slot's rows are split over, and steps a lane runs an
 // iteration, for a launch of this rps and variant (ckpt_every 0: with
-// words).
-extern "C" int sa_wavefront_split(int rps, int affine, int ckpt_every) {
-  return split_of(rps, ckpt_every == 0, affine != 0);
+// words; left: from a left column).
+extern "C" int sa_wavefront_split(int rps, int affine, int ckpt_every,
+                                  int local, int left) {
+  return shape_of(rps, ckpt_every == 0, affine != 0, local != 0, left != 0)
+      .split;
 }
 
-extern "C" int sa_wavefront_block(int rps, int affine, int ckpt_every) {
-  return block_of(rps, ckpt_every == 0, affine != 0);
+extern "C" int sa_wavefront_block(int rps, int affine, int ckpt_every,
+                                  int local, int left) {
+  return shape_of(rps, ckpt_every == 0, affine != 0, local != 0, left != 0)
+      .block;
 }
 
 // Bytes of the scratch a launch needs at that split.
@@ -700,7 +805,8 @@ extern "C" long long sa_wavefront_scratch_bytes(int steps, int slots,
 // (shaped like dirs) with the words, fbot_out (steps,), and ckpts_e
 // (shaped like ckpts) with the checkpoints.  Linear launches pass null
 // for those.  scratch: sa_wavefront_scratch_bytes(steps, slots,
-// sa_wavefront_split(rps, affine, ckpt_every), affine) bytes of device
+// sa_wavefront_split(rps, affine, ckpt_every, local, left_in != null),
+// affine) bytes of device
 // memory, 8-byte aligned, the caller's; it is zeroed on `stream` first.
 // steps is a multiple of 256, slots a multiple of 128 up to 1024 or one
 // of 2048 and 4096, rps one of 1, 2, 4, 8, 16, k <= 32, ckpt_every 0
@@ -720,8 +826,11 @@ extern "C" int sa_wavefront_strip(
              left_e, dirs, dirs2, bottom_out, fbot_out, rowmax, argj, snap,
              ckpts, ckpts_e, steps, slots, rps, k, gap, ext, n, m, i0, local,
              semi, affine, ckpt_every,
-             sa_wavefront_split(rps, affine, ckpt_every),
-             sa_wavefront_block(rps, affine, ckpt_every), scratch, stream);
+             sa_wavefront_split(rps, affine, ckpt_every, local,
+                                left_in != nullptr),
+             sa_wavefront_block(rps, affine, ckpt_every, local,
+                                left_in != nullptr),
+             scratch, stream);
 }
 
 #ifdef SA_WAVEFRONT_ALL_SHAPES

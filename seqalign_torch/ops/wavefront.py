@@ -36,10 +36,13 @@ NEG_INF = -(1 << 30)
 NEG_HALF = NEG_INF // 2  # affine E/F "minus infinity": survives extends
 RPS_CHOICES = (1, 2, 4, 8, 16)
 # K1's scratch (csrc/wavefront.cu): SCRATCH_COUNTERS int32 (the ticket,
-# the windows loaded and those found empty, from SM_LOG each CTA's SM + 1,
-# from BAND_START / BAND_END each band's first and last iteration in ns),
-# then the bands' tagged streams.
+# the windows loaded and those found empty, from STARTED_BLOCKS and
+# GENERAL_BLOCKS the blocks all lanes ran on each path as int64, from
+# SM_LOG each CTA's SM + 1, from BAND_START / BAND_END each band's first
+# and last iteration in ns), then the bands' tagged streams.
 SCRATCH_COUNTERS = 4096
+STARTED_BLOCKS = 4
+GENERAL_BLOCKS = 6
 SM_LOG = 1024
 BAND_START = 2048
 BAND_END = 3072
@@ -201,8 +204,9 @@ def kernel_launch(text_steps, bottom_in, pattern_slots, score_matrix, gap,
     launch's scratch (the bands' streams), re-zeroed by every
     ``launch()``; ``_build.launch_sms(launch)`` reads where its CTAs ran."""
     lib = library("wavefront")
-    shape = tuple(int_function(lib, name, 3)(rps, int(affine),
-                                             int(ckpt_every))
+    shape = tuple(int_function(lib, name, 5)(rps, int(affine),
+                                             int(ckpt_every), int(local),
+                                             int(left_in is not None))
                   for name in ("sa_wavefront_split", "sa_wavefront_block"))
     return split_launch(lib, None, shape, text_steps, bottom_in,
                         pattern_slots, score_matrix, gap, n, m, i0, k_alpha,

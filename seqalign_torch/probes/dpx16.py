@@ -325,27 +325,34 @@ def report(results):
 
 
 _FUNCTION = re.compile(r"Function : (\S+)")
-_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                           r"([A-Z][A-Za-z0-9_.]*)([^;]*);")
 _RATE = re.compile(r"rate_kernelILi(\d+)ELb(\d)E")
 
 
-def loop_body(sass):
+def loop_code(sass):
     """The instructions of the largest loop in one function's ``cuobjdump
     -sass`` text (from a backward branch's target to the branch): a list
-    of opcodes, predicates dropped."""
-    code = [(int(at, 16), opcode, operands)
-            for at, opcode, operands in _INSTRUCTION.findall(sass)]
-    best = None
-    for at, opcode, operands in code:
+    of (address, predicated, opcode, branch target or None)."""
+    code = []
+    for at, pred, opcode, operands in _INSTRUCTION.findall(sass):
         target = re.search(r"0x([0-9a-f]+)", operands)
-        if opcode.startswith("BRA") and target:
-            start = int(target[1], 16)
-            if start < at and (best is None or at - start > best[1] - best[0]):
-                best = (start, at)
+        code.append((int(at, 16), bool(pred), opcode,
+                     int(target[1], 16) if opcode.startswith("BRA")
+                     and target else None))
+    best = None
+    for at, _, _, target in code:
+        if target is not None and target < at and (
+                best is None or at - target > best[1] - best[0]):
+            best = (target, at)
     if best is None:
         return []
-    return [opcode for at, opcode, _ in code if best[0] <= at <= best[1]]
+    return [x for x in code if best[0] <= x[0] <= best[1]]
+
+
+def loop_body(sass):
+    """The opcodes of ``loop_code(sass)``, predicates dropped."""
+    return [opcode for _, _, opcode, _ in loop_code(sass)]
 
 
 def sass_counts(path=None):

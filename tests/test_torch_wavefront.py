@@ -9,6 +9,7 @@ import torch
 from seqalign_torch.native import bindings as port_bindings
 from seqalign_torch.ops import layout
 from seqalign_torch.ops import wavefront as port_wf
+from seqalign_torch.probes import dpx16, wavefront_shapes
 from seqalign_tpu.native import bindings as jax_bindings
 from seqalign_tpu.ops import wavefront as jax_wf
 
@@ -259,3 +260,168 @@ def test_make_left_input_matches_jax(rps, slots):
     assert got.dtype == torch.int32 and got.is_contiguous()
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jax_wf.make_left_input(lc_full, rps, slots)))
+
+
+# K1's cell on the card (``cell()`` in csrc/wavefront.cu) runs on Hopper's
+# DPX instructions.  Their definitions, in numpy: __viaddmax_s32(a, b, c)
+# = max(a + b, c), its _relu form floored at 0, __vimax_s32_relu(a, b) =
+# max(a, b, 0), and __vibmax_s32(a, b, &p) = max(a, b) with p = a >= b.
+def viaddmax(a, b, c, relu=False):
+    out = np.maximum(a + b, c)
+    return np.maximum(out, 0) if relu else out
+
+
+def vibmax(a, b):
+    return np.maximum(a, b), a >= b
+
+
+def dpx_cell(top, left, diag, s, gap, ext, e_in, f_in, local, words,
+             affine):
+    """K1's cell as the card computes it: (H, E, F, dir, run); dir and run
+    None without words, E and F None linear."""
+    e = f = d = run = None
+    if not affine and not words:
+        dl = viaddmax(left, -gap, diag + s)
+        return viaddmax(top, -gap, dl, local), e, f, d, run
+    if not affine:
+        mx, is_left = vibmax(left, top)
+        gap_best = mx - gap
+    elif not words:
+        e = viaddmax(left, -gap, e_in - ext)
+        f = viaddmax(top, -gap, f_in - ext)
+        de = viaddmax(diag, s, e)
+        h = np.maximum(de, f)
+        return (np.maximum(h, 0) if local else h), e, f, d, run
+    else:
+        e, e_opens = vibmax(left - gap, e_in - ext)
+        f, f_opens = vibmax(top - gap, f_in - ext)
+        gap_best, is_left = vibmax(e, f)
+        run = (~e_opens).astype(np.int32) | ((~f_opens).astype(np.int32) << 1)
+    h = viaddmax(diag, s, gap_best, local)
+    d = np.where(h > gap_best, 1, np.where(is_left, 0, 2))
+    if local:
+        d = np.where(h == 0, 3, d)
+    return h, e, f, d, run
+
+
+def plain_cell(top, left, diag, s, gap, ext, e_in, f_in, local, affine):
+    """The same cell by ``wavefront_strip_plain``'s rules: (H, E, F, dir,
+    run)."""
+    diag = diag + s
+    e = f = run = None
+    if affine:
+        e_ext, e_open = e_in - ext, left - gap
+        f_ext, f_open = f_in - ext, top - gap
+        e, f = np.maximum(e_ext, e_open), np.maximum(f_ext, f_open)
+        gap_best = np.maximum(e, f)
+        left_wins = e >= f
+        run = (e_ext > e_open).astype(np.int32) | (
+            (f_ext > f_open).astype(np.int32) << 1)
+    else:
+        gap_best = np.maximum(top, left) - gap
+        left_wins = left >= top
+    best = np.maximum(diag, gap_best)
+    h = np.maximum(best, 0) if local else best
+    d = np.where(diag > gap_best, 1, np.where(left_wins, 0, 2))
+    if local:
+        d = np.where(best > 0, d, 3)
+    return h, e, f, d, run
+
+
+@pytest.mark.parametrize("words", [True, False], ids=["words", "score"])
+@pytest.mark.parametrize("affine", [False, True], ids=["linear", "affine"])
+@pytest.mark.parametrize("mode", ["global", "local", "semi"])
+def test_dpx_cell_matches_plain_recurrence(mode, affine, words):
+    """The DPX forms of K1's cell equal the plain recurrence on tie-heavy
+    int32 inputs: H = max(diag + s, top - gap, left - gap), DIAG iff H >
+    the best gap move, LEFT on ties, local STOP iff H == 0, the affine run
+    bits; and the trackers' first-best column by __vibmax_s32 equals the
+    plain version's strict greater-than."""
+    local = mode == "local"  # semi-global runs the global recurrence
+    rng = np.random.default_rng(
+        ["global", "local", "semi"].index(mode) * 4 + 2 * affine + words)
+    size = 200_000
+    i32 = np.int32
+    # Neighbours a few units apart around a common level, so that the
+    # moves tie often; some levels near 0 (local's floor and STOP).
+    level = np.where(rng.random(size) < 0.5, rng.integers(-12, 12, size),
+                     rng.integers(-(1 << 20), 1 << 20, size)).astype(i32)
+    gap = rng.integers(1, 7, size).astype(i32)
+    ext = (rng.integers(0, 7, size) % gap).astype(i32) if affine else 0
+    top, left, diag = (level + rng.integers(-6, 7, size).astype(i32)
+                       for _ in range(3))
+    s = rng.integers(-5, 6, size).astype(i32)
+    e_in = f_in = 0
+    if affine:
+        e_in, f_in = (np.where(rng.random(size) < 0.1, i32(port_wf.NEG_HALF),
+                               level + rng.integers(-9, 4, size)).astype(i32)
+                      for _ in range(2))
+    got = dpx_cell(top, left, diag, s, gap, ext, e_in, f_in, local, words,
+                   affine)
+    want = plain_cell(top, left, diag, s, gap, ext, e_in, f_in, local,
+                      affine)
+    np.testing.assert_array_equal(got[0], want[0])
+    if affine:
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+    if words:
+        np.testing.assert_array_equal(got[3], want[3])
+        assert (got[3] == 1).any() and (got[3] == 0).any()
+        assert (got[3] == 2).any() and (got[3] == 3).any() == local
+        if affine:
+            np.testing.assert_array_equal(got[4], want[4])
+            assert set(np.unique(got[4])) == {0, 1, 2, 3}
+    # The ties the test is for: a gap move equal to the diagonal's, and
+    # LEFT's equal to TOP's.
+    assert (diag + s == np.maximum(top, left) - gap).sum() > 1000
+    assert (top == left).sum() > 1000
+    if mode != "global":
+        # A row's tracker over the cells of the block (every column
+        # started, within the text): the first column of its maximum.
+        h = got[0][:4096].reshape(64, 64)
+        best_v = np.full(64, port_wf.NEG_INF, i32)
+        best_j = np.zeros(64, i32)
+        plain_v, plain_j = best_v.copy(), best_j.copy()
+        for j in range(64):
+            best_v, keep = vibmax(best_v, h[:, j])
+            best_j = np.where(keep, best_j, j + 1)
+            better = h[:, j] > plain_v
+            plain_v = np.where(better, h[:, j], plain_v)
+            plain_j = np.where(better, j + 1, plain_j)
+        np.testing.assert_array_equal(best_v, plain_v)
+        np.testing.assert_array_equal(best_j, plain_j)
+
+
+# K1's iteration loop as ``cuobjdump -sass`` prints it, cut down: the lane
+# skips its block (0x20), loads a letter, then runs the general path (the
+# then-arm, 0x50-0x80, its selects) or the started path (0x90-0xc0, whose
+# word-end branch skips 0xb0), and stores after both.
+K1_SASS_SAMPLE = """
+        /*0000*/                   SHFL.UP PT, R2, R3, 0x1, RZ ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R4, R5, PT ;
+        /*0020*/               @P0 BRA 0xe0 ;
+        /*0030*/                   LDG.E.CONSTANT R6, desc[UR4][R8.64] ;
+        /*0040*/               @P1 BRA 0x90 ;
+        /*0050*/                   VIADDMNMX R7, R7, R6, R2, !PT ;
+        /*0060*/                   SEL R7, R7, R2, P2 ;
+        /*0070*/                   SEL R11, R11, R7, P2 ;
+        /*0080*/                   BRA 0xd0 ;
+        /*0090*/                   VIADDMNMX R7, R7, R6, R2, !PT ;
+        /*00a0*/              @!P3 BRA 0xc0 ;
+        /*00b0*/                   MOV R9, R7 ;
+        /*00c0*/                   SHF.R.W.U32 R10, R10, 0x2, R7 ;
+        /*00d0*/                   STG.E desc[UR4][R12.64], R7 ;
+        /*00e0*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*00f0*/               @P4 BRA 0x0 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_sass_started_block_takes_the_started_path():
+    """``--sass``'s count: the loop, and in a started block the letter
+    load, the shorter arm with its rare branch skipped, and the store."""
+    code = dpx16.loop_code(K1_SASS_SAMPLE)
+    assert [x[0] for x in code] == list(range(0, 0x100, 0x10))
+    got = [x[2] for x in wavefront_shapes.started_block(code)]
+    assert got == ["LDG.E.CONSTANT", "BRA", "VIADDMNMX", "BRA",
+                   "SHF.R.W.U32", "STG.E"]
