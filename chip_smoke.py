@@ -822,9 +822,10 @@ def ptxas_summary(path):
             label = (f"<rps {args[1]}, window {args[2]} slots x {args[3]} "
                      f"groups, affine {args[4]}, local {args[5]}>")
         elif args := re.search(r"interpair(?:16)?_kernelILi(\d)ELb(\d)ELb"
-                               r"(\d)ELi(\d+)E", name):
+                               r"(\d)ELi(\d+)ELb(\d)E", name):
             label = (f"<mode {args[1]}, dirs {args[2]}, "
-                     f"affine {args[3]}, columns/block {args[4]}>")
+                     f"affine {args[3]}, columns/block {args[4]}, "
+                     f"search {args[5]}>")
         elif args := re.search(r"batch_walk_kernelILi(\d)ELb(\d)ELi(\d+)E",
                                name):
             label = f"<mode {args[1]}, affine {args[2]}, run {args[3]}>"
@@ -4487,12 +4488,13 @@ def run(procs):
         f"groups) by rps, linear/affine, as ops/walk.py names them: "
         + ", ".join(f"{rps}: {shapes[rps, False]}/{shapes[rps, True]}"
                     for rps in walk.WINDOW_SHAPES))
-    # K3 and K3-cell16 keep a stripe's rows in registers too.
+    # K3 and K3-cell16 keep a stripe's rows in registers too: 12 batch
+    # instances each (mode x dirs x affine) and 6 of the search layout.
     k3_lines = [line for name in ("interpair", "interpair16")
                 for line in ptxas_summary(kernels[name])
                 if "interpair" in line]
     spilled = [line for line in k3_lines if "spill stores 0 B" not in line]
-    check(len(k3_lines) == 24 and not spilled,
+    check(len(k3_lines) == 36 and not spilled,
           f"K3 spills: {spilled or k3_lines or 'no lines'}")
     log(f"K3, K3-cell16: {len(k3_lines)} instances, none spills")
     # K4's walks keep their state in registers too; its shapes in code are

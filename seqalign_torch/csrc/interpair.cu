@@ -78,6 +78,18 @@
 // probe's build, with SA_INTERPAIR_ALL_SHAPES, takes any W up to 16 and
 // SB of 2, 4, 8, 16 as arguments, and a trace buffer
 // (interpair_chain.cuh's kTraceWords a warp).
+//
+// The search layout (sa_interpair_search; parallel/search.py's database,
+// score-only): one pattern, the query, shared by every pair and read as
+// (m_rows,) letters with ms (1,); the texts lie in groups of 64 pairs,
+// group g a (width, 64) [column][pair] block at byte groups[g] -
+// groups[0], CTA c taking pairs (c % 2) * 32 .. + 31 of group c / 2.
+// The row and frow scratch have the texts' layout in int32 (a group's
+// block at the same offsets), so a CTA's reads and its scratch stay on
+// 32 neighbouring addresses a column.  ns and scores stay (b,), pair
+// 64g + l being column l of group g.
+// It has score-only instances of its own (kSearch), so the batch's
+// instances keep their indexing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,7 +193,7 @@ __device__ __forceinline__ void track_row_m(int hm, int j, int n, int m,
   }
 }
 
-template <int kMode, bool kDirs, bool kAffine, int kSB>
+template <int kMode, bool kDirs, bool kAffine, int kSB, bool kSearch>
 __global__ void __launch_bounds__(kWarp * kMaxWarps)
     interpair_kernel(
         const int8_t* __restrict__ texts,     // (n_cols, b) letters
@@ -193,9 +205,11 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps)
         int32_t* __restrict__ frow,  // (n_cols, b) scratch, affine only
         int32_t* __restrict__ scores, int32_t* __restrict__ best_is,
         int32_t* __restrict__ best_js, int32_t* __restrict__ dirs,
-        int32_t* __restrict__ dirs2, int32_t* __restrict__ trace) {
+        int32_t* __restrict__ dirs2, int32_t* __restrict__ trace,
+        const int64_t* __restrict__ groups) {  // kSearch only
   static_assert(kRingCols % kSB == 0 && (kSB & (kSB - 1)) == 0,
                 "a ring holds whole blocks of a power of two");
+  static_assert(!(kSearch && kDirs), "the search layout is score-only");
   // The warps' rings, H then F: [plane][warp][kRingCols][lane].
   extern __shared__ int32_t rings[];
   __shared__ int32_t sub[32 * 32];
@@ -214,8 +228,13 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps)
   __syncthreads();
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kWarp + lane;
   const bool real = p < b;
+  // Column j of the pair's letters and scratch lies at base + j * stride.
+  const int64_t stride = kSearch ? 2 * kWarp : b;
+  const int64_t base = kSearch ? groups[blockIdx.x / 2] - groups[0] +
+                                     (blockIdx.x % 2) * kWarp + lane
+                               : p;
   const int n = real ? min(ns[p], n_cols) : 0;
-  const int m = real ? min(ms[p], m_rows) : 0;
+  const int m = real ? min(ms[kSearch ? 0 : p], m_rows) : 0;
   const int num_w = m_rows / kRows;
   const int stripes =
       kDirs ? num_w
@@ -251,9 +270,10 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps)
       } else {
         h[r] = kMode == kLocal ? 0 : -gap * (i0 + r + 1);
       }
-      const int8_t letter = real && i0 + r < m_rows
-                                ? patterns[(i0 + r) * b + p]
-                                : int8_t{0};
+      const int8_t letter =
+          real && i0 + r < m_rows
+              ? patterns[kSearch ? i0 + r : (i0 + r) * stride + base]
+              : int8_t{0};
       const uint32_t at =
           (static_cast<uint8_t>(letter) & 31) * k * sizeof(int32_t);
       if (r % 2 == 0) {
@@ -305,17 +325,17 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps)
         return kAffine ? -gap - ge * j : -gap * (j + 1);
       }
       if (warp > 0) return in_h[ring_at(c) * kWarp];
-      return real ? row[j * b + p] : 0;
+      return real ? row[j * stride + base] : 0;
     };
     // F[i0, j+1] (affine): row 0 starts no run.
     auto ftop_at = [&](int j, int c) {
       if (s == 0) return kNegHalf;
       if (warp > 0) return in_h[ring_plane + ring_at(c) * kWarp];
-      return real ? frow[j * b + p] : 0;
+      return real ? frow[j * stride + base] : 0;
     };
     int top_next = 0;
     int ftop_next = 0;
-    int8_t t_next = cols > 0 && real ? texts[p] : int8_t{0};
+    int8_t t_next = cols > 0 && real ? texts[base] : int8_t{0};
     for (int j = 0; j < cols; ++j) {
       const int c = j & (kSB - 1);
       if (c == 0) {
@@ -327,7 +347,7 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps)
       const int ftop0 = ftop_next;
       const int t = static_cast<uint8_t>(t_next) & 31;
       if (j + 1 < cols) {
-        if (real) t_next = texts[(j + 1) * b + p];
+        if (real) t_next = texts[(j + 1) * stride + base];
         if (c + 1 < kSB) {
           top_next = top_at(j + 1, c + 1);
           if (kAffine) ftop_next = ftop_at(j + 1, c + 1);
@@ -408,8 +428,8 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps)
         out_h[ring_at(c) * kWarp] = up;
         if (kAffine) out_h[ring_plane + ring_at(c) * kWarp] = f;
       } else if (to_global) {
-        row[j * b + p] = up;
-        if (kAffine) frow[j * b + p] = f;
+        row[j * stride + base] = up;
+        if (kAffine) frow[j * stride + base] = f;
       }
       if (kDirs) {
         words[static_cast<int64_t>(j) * tile_pairs] = word;
@@ -444,11 +464,12 @@ struct Args {
   int64_t b;
   int n_cols, m_rows, tile_pairs;
   int32_t *row, *frow, *scores, *best_is, *best_js, *dirs, *dirs2, *trace;
+  const int64_t* groups;
 };
 
-template <int kMode, bool kDirs, bool kAffine, int kSB>
+template <int kMode, bool kDirs, bool kAffine, int kSB, bool kSearch>
 cudaError_t launch(const Args& a, int grid, int warps, cudaStream_t stream) {
-  const auto kernel = interpair_kernel<kMode, kDirs, kAffine, kSB>;
+  const auto kernel = interpair_kernel<kMode, kDirs, kAffine, kSB, kSearch>;
   const int ring_bytes =
       (kAffine ? 2 : 1) * warps * kRingCols * kWarp * sizeof(int32_t);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -457,39 +478,58 @@ cudaError_t launch(const Args& a, int grid, int warps, cudaStream_t stream) {
   kernel<<<grid, warps * kWarp, ring_bytes, stream>>>(
       a.texts, a.patterns, a.ns, a.ms, a.score_matrix, a.k, a.gap, a.ge,
       a.b, a.n_cols, a.m_rows, a.tile_pairs, a.row, a.frow, a.scores,
-      a.best_is, a.best_js, a.dirs, a.dirs2, a.trace);
+      a.best_is, a.best_js, a.dirs, a.dirs2, a.trace, a.groups);
   return cudaGetLastError();
 }
 
-template <int kMode, bool kDirs, bool kAffine>
+template <int kMode, bool kDirs, bool kAffine, bool kSearch>
 cudaError_t launch_block(const Args& a, int grid, int warps, int sb,
                          cudaStream_t stream) {
 #ifdef SA_INTERPAIR_ALL_SHAPES
   switch (sb) {
-    case 2: return launch<kMode, kDirs, kAffine, 2>(a, grid, warps, stream);
-    case 4: return launch<kMode, kDirs, kAffine, 4>(a, grid, warps, stream);
-    case 8: return launch<kMode, kDirs, kAffine, 8>(a, grid, warps, stream);
-    case 16: return launch<kMode, kDirs, kAffine, 16>(a, grid, warps, stream);
+    case 2:
+      return launch<kMode, kDirs, kAffine, 2, kSearch>(a, grid, warps,
+                                                         stream);
+    case 4:
+      return launch<kMode, kDirs, kAffine, 4, kSearch>(a, grid, warps,
+                                                         stream);
+    case 8:
+      return launch<kMode, kDirs, kAffine, 8, kSearch>(a, grid, warps,
+                                                         stream);
+    case 16:
+      return launch<kMode, kDirs, kAffine, 16, kSearch>(a, grid, warps,
+                                                         stream);
     default: return cudaErrorInvalidValue;
   }
 #else
   constexpr int kSB = block_of(kDirs, kAffine);
   if (sb != kSB) return cudaErrorInvalidValue;
-  return launch<kMode, kDirs, kAffine, kSB>(a, grid, warps, stream);
+  return launch<kMode, kDirs, kAffine, kSB, kSearch>(a, grid, warps, stream);
 #endif
 }
 
 template <int kMode>
 cudaError_t launch_mode(const Args& a, bool with_dirs, bool affine, int grid,
                         int warps, int sb, cudaStream_t stream) {
-  if (affine) {
-    return with_dirs
-               ? launch_block<kMode, true, true>(a, grid, warps, sb, stream)
-               : launch_block<kMode, false, true>(a, grid, warps, sb, stream);
+  // The search layout's instances of their own (score-only), so that the
+  // batch's keep their indexing.
+  if (a.groups != nullptr) {
+    return affine
+               ? launch_block<kMode, false, true, true>(a, grid, warps, sb,
+                                                        stream)
+               : launch_block<kMode, false, false, true>(a, grid, warps, sb,
+                                                         stream);
   }
-  return with_dirs
-             ? launch_block<kMode, true, false>(a, grid, warps, sb, stream)
-             : launch_block<kMode, false, false>(a, grid, warps, sb, stream);
+  if (affine) {
+    return with_dirs ? launch_block<kMode, true, true, false>(a, grid, warps,
+                                                              sb, stream)
+                     : launch_block<kMode, false, true, false>(a, grid, warps,
+                                                               sb, stream);
+  }
+  return with_dirs ? launch_block<kMode, true, false, false>(a, grid, warps,
+                                                             sb, stream)
+                   : launch_block<kMode, false, false, false>(a, grid, warps,
+                                                              sb, stream);
 }
 
 // The warps a CTA runs for at most `most`: the stripes of m_rows rows
@@ -526,10 +566,11 @@ int fill(const int8_t* texts, const int8_t* patterns, const int32_t* ns,
          int tile_pairs, int mode, int with_dirs, int32_t* row,
          int32_t* frow, int32_t* scores, int32_t* best_is, int32_t* best_js,
          int32_t* dirs, int32_t* dirs2, int warps, int sb, int32_t* trace,
-         void* stream) {
+         const int64_t* groups, void* stream) {
   if (k < 1 || k > 32 || b < 0 || n_cols < 1 || m_rows < 1 ||
       tile_pairs < 1 || mode < 0 || mode > 2 ||
       (with_dirs && (m_rows % kRows || b % tile_pairs)) ||
+      (groups != nullptr && (with_dirs || b % (2 * kWarp))) ||
       (affine && (frow == nullptr || (with_dirs && dirs2 == nullptr))) ||
       warps < 1 || warps > kMaxWarps) {
     return cudaErrorInvalidValue;
@@ -540,7 +581,7 @@ int fill(const int8_t* texts, const int8_t* patterns, const int32_t* ns,
   auto s = static_cast<cudaStream_t>(stream);
   const Args a{texts, patterns, ns, ms, score_matrix, k, gap,
                affine ? gap_extend : 0, b, n_cols, m_rows, tile_pairs, row,
-               frow, scores, best_is, best_js, dirs, dirs2, trace};
+               frow, scores, best_is, best_js, dirs, dirs2, trace, groups};
   const bool d = with_dirs != 0;
   const bool af = affine != 0;
   const int grid = static_cast<int>(blocks);
@@ -581,7 +622,34 @@ extern "C" int sa_interpair_fill(const int8_t* texts, const int8_t* patterns,
               affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
               frow, scores, best_is, best_js, dirs, dirs2,
               warps_in_code(d, af, m_rows, b, sms), block_of(d, af),
-              nullptr, stream);
+              nullptr, nullptr, stream);
+}
+
+// Scores of b pairs in the search layout (the header's): texts the
+// groups' blocks from groups[0] on, groups (b / 64,) int64 byte offsets,
+// patterns (m_rows,) the query and ms (1,) its length, ns and scores
+// (b,), row and frow (affine) int32 scratch of the texts' extent
+// (groups[b / 64 - 1] - groups[0] + the last block), the rest as
+// sa_interpair_fill's, score-only.  Returns the launch's cudaError_t.
+extern "C" int sa_interpair_search(const int8_t* texts, const int64_t* groups,
+                                   const int8_t* patterns, const int32_t* ns,
+                                   const int32_t* ms,
+                                   const int32_t* score_matrix, int k,
+                                   int gap, int gap_extend, int affine,
+                                   int64_t b, int n_cols, int m_rows,
+                                   int mode, int32_t* row, int32_t* frow,
+                                   int32_t* scores, void* stream) {
+  if (groups == nullptr) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  const bool af = affine != 0;
+  // Score-only: tile_pairs (any >= 1) places no word.
+  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
+              affine, b, n_cols, m_rows, 128, mode, 0, row, frow, scores,
+              nullptr, nullptr, nullptr, nullptr,
+              warps_in_code(false, af, m_rows, b, sms), block_of(false, af),
+              nullptr, groups, stream);
 }
 
 // The shape sa_interpair_fill takes for the variant on a batch of b pairs
@@ -616,6 +684,6 @@ extern "C" int sa_interpair_fill_shape(
   return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
               affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
               frow, scores, best_is, best_js, dirs, dirs2, warps, sb, trace,
-              stream);
+              nullptr, stream);
 }
 #endif

@@ -54,6 +54,13 @@
 // int32 K3 (warps_of, block_of; probes/interpair_shapes.py), every
 // variant up to 16 warps, 128 registers a thread (a row's two pattern
 // letters share one).
+//
+// The search layout (sa_interpair16_search), that of csrc/interpair.cu:
+// the query shared by every pair, (m_rows,) with ms (1,), and the texts
+// in groups of 64 pairs, group g a (width, 64) block at byte groups[g] -
+// groups[0]; CTA c takes group c, its lane l pairs 2l and 2l+1, and the
+// [column][pair-pair] scratch a group's block at half its texts' offset.
+// Its instances are its own (kSearch), as in csrc/interpair.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,7 +183,7 @@ __device__ __forceinline__ void track_column16(
   }
 }
 
-template <int kMode, bool kDirs, bool kAffine, int kSB>
+template <int kMode, bool kDirs, bool kAffine, int kSB, bool kSearch>
 __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
     const int8_t* __restrict__ texts,     // (n_cols, b) letters
     const int8_t* __restrict__ patterns,  // (m_rows, b) letters
@@ -187,9 +194,11 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
     uint32_t* __restrict__ frow,  // (n_cols, b/2) scratch, affine only
     int32_t* __restrict__ scores, int32_t* __restrict__ best_is,
     int32_t* __restrict__ best_js, int32_t* __restrict__ dirs,
-    int32_t* __restrict__ dirs2, int32_t* __restrict__ trace) {
+    int32_t* __restrict__ dirs2, int32_t* __restrict__ trace,
+    const int64_t* __restrict__ groups) {  // kSearch only
   static_assert(kRingCols % kSB == 0 && (kSB & (kSB - 1)) == 0,
                 "a ring holds whole blocks of a power of two");
+  static_assert(!(kSearch && kDirs), "the search layout is score-only");
   // The warps' rings, H then F: [plane][warp][kRingCols][lane].
   extern __shared__ uint32_t rings16[];
   __shared__ int16_t sub[32 * 32];
@@ -210,10 +219,15 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarp + lane;
   const bool real = t < half_b;
   const int64_t p = 2 * t;  // pair p in the low halves, p + 1 in the high
+  // Column j of the two pairs' letters (uint16) and scratch (uint32) lies
+  // at base + j * stride.
+  const int64_t stride = kSearch ? kWarp : half_b;
+  const int64_t base =
+      kSearch ? (groups[blockIdx.x] - groups[0]) / 2 + lane : t;
   const int n_lo = real ? min(ns[p], n_cols) : 0;
   const int n_hi = real ? min(ns[p + 1], n_cols) : 0;
-  const int m_lo = real ? min(ms[p], m_rows) : 0;
-  const int m_hi = real ? min(ms[p + 1], m_rows) : 0;
+  const int m_lo = real ? min(ms[kSearch ? 0 : p], m_rows) : 0;
+  const int m_hi = real ? min(ms[kSearch ? 0 : p + 1], m_rows) : 0;
   const int num_w = m_rows / kRows;
   const int stripes =
       kDirs ? num_w
@@ -262,9 +276,11 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
       } else {
         h[r] = kMode == kLocal ? 0u : splat(-gap * i);
       }
-      const uint32_t letters = real && i0 + r < m_rows
-                                   ? patterns2[(i0 + r) * half_b + t]
-                                   : 0u;
+      const uint32_t letters =
+          real && i0 + r < m_rows
+              ? (kSearch ? static_cast<uint8_t>(patterns[i0 + r]) * 0x101u
+                         : patterns2[(i0 + r) * stride + base])
+              : 0u;
       prow[r] = ((letters & 31) * k | (((letters >> 8) & 31) * k) << 16) *
                 sizeof(int16_t);
       if (!kDirs && kMode != kLocal) rmask[r] = halves(i == m_lo, i == m_hi);
@@ -314,17 +330,17 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
         return splat(kAffine ? -gap - ge * j : -gap * (j + 1));
       }
       if (warp > 0) return in_h[ring_at(c) * kWarp];
-      return real ? row[j * half_b + t] : 0u;
+      return real ? row[j * stride + base] : 0u;
     };
     // F[i0, j+1] (affine): row 0 starts no run.
     auto ftop_at = [&](int j, int c) -> uint32_t {
       if (s == 0) return neg2;
       if (warp > 0) return in_h[ring_plane + ring_at(c) * kWarp];
-      return real ? frow[j * half_b + t] : 0u;
+      return real ? frow[j * stride + base] : 0u;
     };
     uint32_t top_next = 0;
     uint32_t ftop_next = 0;
-    uint32_t t_next = cols > 0 && real ? texts2[t] : 0u;
+    uint32_t t_next = cols > 0 && real ? texts2[base] : 0u;
     for (int j = 0; j < cols; ++j) {
       const int c = j & (kSB - 1);
       if (c == 0) {
@@ -338,7 +354,7 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
       const uint32_t t2 =
           ((t_next & 31) | ((t_next >> 8) & 31) << 16) * sizeof(int16_t);
       if (j + 1 < cols) {
-        if (real) t_next = texts2[(j + 1) * half_b + t];
+        if (real) t_next = texts2[(j + 1) * stride + base];
         if (c + 1 < kSB) {
           top_next = top_at(j + 1, c + 1);
           if (kAffine) ftop_next = ftop_at(j + 1, c + 1);
@@ -445,8 +461,8 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
         out_h[ring_at(c) * kWarp] = up;
         if (kAffine) out_h[ring_plane + ring_at(c) * kWarp] = f;
       } else if (to_global) {
-        row[j * half_b + t] = up;
-        if (kAffine) frow[j * half_b + t] = f;
+        row[j * stride + base] = up;
+        if (kAffine) frow[j * stride + base] = f;
       }
       if (kDirs) {
         const int64_t at = static_cast<int64_t>(j) * tile_pairs;
@@ -493,11 +509,12 @@ struct Args {
   int n_cols, m_rows, tile_pairs;
   uint32_t *row, *frow;
   int32_t *scores, *best_is, *best_js, *dirs, *dirs2, *trace;
+  const int64_t* groups;
 };
 
-template <int kMode, bool kDirs, bool kAffine, int kSB>
+template <int kMode, bool kDirs, bool kAffine, int kSB, bool kSearch>
 cudaError_t launch(const Args& a, int grid, int warps, cudaStream_t stream) {
-  const auto kernel = interpair16_kernel<kMode, kDirs, kAffine, kSB>;
+  const auto kernel = interpair16_kernel<kMode, kDirs, kAffine, kSB, kSearch>;
   const int ring_bytes =
       (kAffine ? 2 : 1) * warps * kRingCols * kWarp * sizeof(uint32_t);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -506,39 +523,58 @@ cudaError_t launch(const Args& a, int grid, int warps, cudaStream_t stream) {
   kernel<<<grid, warps * kWarp, ring_bytes, stream>>>(
       a.texts, a.patterns, a.ns, a.ms, a.score_matrix, a.k, a.gap, a.ge,
       a.b, a.n_cols, a.m_rows, a.tile_pairs, a.row, a.frow, a.scores,
-      a.best_is, a.best_js, a.dirs, a.dirs2, a.trace);
+      a.best_is, a.best_js, a.dirs, a.dirs2, a.trace, a.groups);
   return cudaGetLastError();
 }
 
-template <int kMode, bool kDirs, bool kAffine>
+template <int kMode, bool kDirs, bool kAffine, bool kSearch>
 cudaError_t launch_block(const Args& a, int grid, int warps, int sb,
                          cudaStream_t stream) {
 #ifdef SA_INTERPAIR_ALL_SHAPES
   switch (sb) {
-    case 2: return launch<kMode, kDirs, kAffine, 2>(a, grid, warps, stream);
-    case 4: return launch<kMode, kDirs, kAffine, 4>(a, grid, warps, stream);
-    case 8: return launch<kMode, kDirs, kAffine, 8>(a, grid, warps, stream);
-    case 16: return launch<kMode, kDirs, kAffine, 16>(a, grid, warps, stream);
+    case 2:
+      return launch<kMode, kDirs, kAffine, 2, kSearch>(a, grid, warps,
+                                                         stream);
+    case 4:
+      return launch<kMode, kDirs, kAffine, 4, kSearch>(a, grid, warps,
+                                                         stream);
+    case 8:
+      return launch<kMode, kDirs, kAffine, 8, kSearch>(a, grid, warps,
+                                                         stream);
+    case 16:
+      return launch<kMode, kDirs, kAffine, 16, kSearch>(a, grid, warps,
+                                                         stream);
     default: return cudaErrorInvalidValue;
   }
 #else
   constexpr int kSB = block_of(kDirs, kAffine);
   if (sb != kSB) return cudaErrorInvalidValue;
-  return launch<kMode, kDirs, kAffine, kSB>(a, grid, warps, stream);
+  return launch<kMode, kDirs, kAffine, kSB, kSearch>(a, grid, warps, stream);
 #endif
 }
 
 template <int kMode>
 cudaError_t launch_mode(const Args& a, bool with_dirs, bool affine, int grid,
                         int warps, int sb, cudaStream_t stream) {
-  if (affine) {
-    return with_dirs
-               ? launch_block<kMode, true, true>(a, grid, warps, sb, stream)
-               : launch_block<kMode, false, true>(a, grid, warps, sb, stream);
+  // The search layout's instances of their own (score-only), so that the
+  // batch's keep their indexing.
+  if (a.groups != nullptr) {
+    return affine
+               ? launch_block<kMode, false, true, true>(a, grid, warps, sb,
+                                                        stream)
+               : launch_block<kMode, false, false, true>(a, grid, warps, sb,
+                                                         stream);
   }
-  return with_dirs
-             ? launch_block<kMode, true, false>(a, grid, warps, sb, stream)
-             : launch_block<kMode, false, false>(a, grid, warps, sb, stream);
+  if (affine) {
+    return with_dirs ? launch_block<kMode, true, true, false>(a, grid, warps,
+                                                              sb, stream)
+                     : launch_block<kMode, false, true, false>(a, grid, warps,
+                                                               sb, stream);
+  }
+  return with_dirs ? launch_block<kMode, true, false, false>(a, grid, warps,
+                                                             sb, stream)
+                   : launch_block<kMode, false, false, false>(a, grid, warps,
+                                                              sb, stream);
 }
 
 // The warps a CTA runs for at most `most`: the stripes of m_rows rows
@@ -575,10 +611,11 @@ int fill(const int8_t* texts, const int8_t* patterns, const int32_t* ns,
          int tile_pairs, int mode, int with_dirs, int32_t* row,
          int32_t* frow, int32_t* scores, int32_t* best_is, int32_t* best_js,
          int32_t* dirs, int32_t* dirs2, int warps, int sb, int32_t* trace,
-         void* stream) {
+         const int64_t* groups, void* stream) {
   if (k < 1 || k > 32 || b < 0 || b % 2 || n_cols < 1 || m_rows < 1 ||
       tile_pairs < 1 || mode < 0 || mode > 2 ||
       (with_dirs && (m_rows % kRows || tile_pairs % 2 || b % tile_pairs)) ||
+      (groups != nullptr && (with_dirs || b % (2 * kWarp))) ||
       (affine && (frow == nullptr || (with_dirs && dirs2 == nullptr))) ||
       warps < 1 || warps > kMaxWarps) {
     return cudaErrorInvalidValue;
@@ -591,7 +628,7 @@ int fill(const int8_t* texts, const int8_t* patterns, const int32_t* ns,
                affine ? gap_extend : 0, b, n_cols, m_rows, tile_pairs,
                reinterpret_cast<uint32_t*>(row),
                reinterpret_cast<uint32_t*>(frow), scores, best_is, best_js,
-               dirs, dirs2, trace};
+               dirs, dirs2, trace, groups};
   const bool d = with_dirs != 0;
   const bool af = affine != 0;
   const int grid = static_cast<int>(blocks);
@@ -623,7 +660,29 @@ extern "C" int sa_interpair16_fill(
               affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
               frow, scores, best_is, best_js, dirs, dirs2,
               warps_in_code(d, af, m_rows, b, sms), block_of(d, af),
-              nullptr, stream);
+              nullptr, nullptr, stream);
+}
+
+// Scores of b pairs in int16 cells in the search layout; the arguments
+// are those of sa_interpair_search (csrc/interpair.cu), with row and frow
+// uint32 scratch of half the texts' extent.  Returns the launch's
+// cudaError_t.
+extern "C" int sa_interpair16_search(
+    const int8_t* texts, const int64_t* groups, const int8_t* patterns,
+    const int32_t* ns, const int32_t* ms, const int32_t* score_matrix, int k,
+    int gap, int gap_extend, int affine, int64_t b, int n_cols, int m_rows,
+    int mode, int32_t* row, int32_t* frow, int32_t* scores, void* stream) {
+  if (groups == nullptr) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  const bool af = affine != 0;
+  // Score-only: tile_pairs (any even) places no word.
+  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
+              affine, b, n_cols, m_rows, 128, mode, 0, row, frow, scores,
+              nullptr, nullptr, nullptr, nullptr,
+              warps_in_code(false, af, m_rows, b, sms), block_of(false, af),
+              nullptr, groups, stream);
 }
 
 // The shape sa_interpair16_fill takes for the variant on a batch of b pairs
@@ -657,6 +716,6 @@ extern "C" int sa_interpair16_fill_shape(
   return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
               affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
               frow, scores, best_is, best_js, dirs, dirs2, warps, sb, trace,
-              stream);
+              nullptr, stream);
 }
 #endif

@@ -22,6 +22,11 @@ int32 score matrix.  Linear gaps, or affine (Gotoh) ones with
 extend cost, as the JAX ``BatchAligner`` requires): global, local and
 semi-global.
 
+``search_score`` runs the score-only kernels in the search layout of
+``parallel/search.py``'s resident database: one query shared by every
+pair, and the texts in groups of ``GROUP`` pairs of similar length, each
+group a (width, GROUP) [column][pair] block of its own width.
+
 ``cell16=True`` runs the same DP in int16 cells (the JAX kernel's
 ``cell16`` mode): ``NEG_16`` sentinels in place of ``NEG_HALF`` and
 ``NEG_INF``, int32 words, best cells and scores.  Callers gate it on
@@ -50,6 +55,7 @@ NEG_HALF = NEG_INF // 2  # E and F before any gap run (affine)
 DIR_ROWS_PER_WORD = 16
 TILE_QUANTUM = 128  # tile_pairs is a multiple of this (the JAX layout)
 WARP = 32  # pairs a CTA of K3 (64 of K3-cell16, two a lane)
+GROUP = 2 * WARP  # pairs of a search group: one K3-cell16 CTA, two of K3
 TRACE_WORDS = 4  # a warp's trace (csrc/interpair_chain.cuh's kTraceWords)
 # int16 cell mode (the JAX package's values): sentinels at -2^14; every
 # DP value must stay clear of them and of int16 wraparound, which
@@ -323,6 +329,95 @@ def batch_fill_dirs(texts, patterns, ns, ms, score_matrix, gap,
 
 batch_fill_dirs.launches = 0
 batch_fill_dirs.cell16_launches = 0
+
+
+def search_score(texts, groups, width: int, ns, query, score_matrix, gap,
+                 k_alpha: int, local: bool = False, semi: bool = False,
+                 gap_extend=None, cell16: bool = False):
+    """Scores of ``query`` against every pair of a run of search groups
+    (``csrc/interpair.cu``'s search layout; int16 cells with ``cell16``,
+    which the caller gates on ``int16_cells_ok``).
+
+    texts: int8, the run's groups' blocks, group g's (width_g, GROUP)
+    [column][pair] block from ``groups[g] - groups[0]``, the blocks in
+    order and back to back; groups: (G,) int64 offsets; width: the
+    widest group's width (the caller's, so that no launch reads the
+    device); ns: (G * GROUP,) int32 lengths, pair GROUP * g + l the text
+    in column l of group g (0 for a padding pair); query: (m,) int8
+    letters, m >= 1.  Returns (G * GROUP,) int32 on the inputs' device,
+    as ``batch_score``'s for the pairs (text, query).  A launch counts in
+    ``search_score.launches`` or ``search_score.cell16_launches``."""
+    b, m = ns.shape[0], query.shape[0]
+    if groups.dim() != 1 or b != GROUP * groups.shape[0] or m < 1:
+        raise ValueError(f"{b} lengths for {groups.shape[0]} groups of "
+                         f"{GROUP}, query of {m}")
+    if texts.device.type == "cpu":
+        return _search_plain(texts, groups, ns, query, score_matrix, gap,
+                             k_alpha, local, semi, gap_extend, cell16)
+    for name, x, dtype in (("texts", texts, torch.int8),
+                           ("groups", groups, torch.int64),
+                           ("ns", ns, torch.int32),
+                           ("query", query, torch.int8),
+                           ("score_matrix", score_matrix, torch.int32)):
+        if x.device != texts.device or x.dtype != dtype or \
+                not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} on "
+                             f"{texts.device}")
+    name = "interpair16" if cell16 else "interpair"
+    affine = gap_extend is not None
+    device = texts.device
+    i32 = torch.int32
+    # The scratch holds the texts' extent in int32 (in packed int16
+    # pairs, half of it, for cell16).
+    extent = texts.shape[0] // 2 if cell16 else texts.shape[0]
+    row = torch.empty(extent, dtype=i32, device=device)
+    frow = torch.empty(extent, dtype=i32, device=device) if affine else None
+    ms = torch.full((1,), m, dtype=i32, device=device)
+    scores = torch.empty(b, dtype=i32, device=device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = c_function(library(name), f"sa_{name}_search",
+                    [p] * 6 + [i, i, i, i, ctypes.c_int64, i, i, i]
+                    + [p] * 4)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(texts.data_ptr(), groups.data_ptr(), query.data_ptr(),
+                ns.data_ptr(), ms.data_ptr(), score_matrix.data_ptr(),
+                k_alpha, int(gap), int(gap_extend) if affine else 0,
+                int(affine), b, int(width), m,
+                mode_code(local, semi), row.data_ptr(), ptr(frow),
+                scores.data_ptr(), stream)
+    check_launch(name, rc)
+    if cell16:
+        search_score.cell16_launches += 1
+    else:
+        search_score.launches += 1
+    return scores
+
+
+search_score.launches = 0
+search_score.cell16_launches = 0
+
+
+def _search_plain(texts, groups, ns, query, score_matrix, gap, k_alpha,
+                  local, semi, gap_extend, cell16):
+    """``search_score``'s plain version: the groups' blocks unpacked to
+    (B, widest) rows and the query repeated, through
+    ``batch_score_plain``."""
+    rel = groups.to(torch.int64) - groups[0]
+    widths = (torch.cat([rel[1:], rel.new_tensor([texts.shape[0]])])
+              - rel) // GROUP
+    cols = torch.arange(int(widths.max()), device=texts.device)
+    lanes = torch.arange(GROUP, device=texts.device)
+    at = rel[:, None, None] + cols * GROUP + lanes[:, None]
+    inside = (cols < widths[:, None, None]).expand_as(at)
+    rows = torch.zeros(at.shape, dtype=torch.int8, device=texts.device)
+    rows[inside] = texts[at[inside]]
+    b, m = ns.shape[0], query.shape[0]
+    return batch_score_plain(
+        rows.reshape(b, -1), query.reshape(1, m).expand(b, m), ns,
+        torch.full((b,), m, dtype=torch.int32, device=texts.device),
+        score_matrix, gap, k_alpha, local=local, semi=semi,
+        gap_extend=gap_extend, cell16=cell16)
 
 
 def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,

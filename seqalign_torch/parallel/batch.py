@@ -18,6 +18,10 @@ cells (``csrc/interpair16.cu``), as in the JAX class; no output changes.
 Across processes (``torch.distributed``), ``score`` all-gathers its
 scores, and ``align`` returns the alignments of this process's blocks
 only: the other processes' pairs stay None, as in the JAX class.
+
+``database`` and ``search`` score one query against many sequences
+packed once onto the mesh (``parallel/search.py``): protein database
+search, with no per-pair host work a request.
 """
 
 from __future__ import annotations
@@ -269,6 +273,23 @@ class BatchAligner:
                 local=self.local, semi=self.semi, gap_extend=self.gap_extend)
             out[bucket.indices] = scores[:b]
         return out
+
+    def database(self, sequences: Sequence[np.ndarray]):
+        """The ``sequences`` (letter arrays) packed and uploaded once for
+        ``search``: a ``parallel.search.Database`` on this aligner's
+        mesh."""
+        from . import search
+
+        return search.Database(sequences, self.mesh, self.alphabet_size)
+
+    def search(self, query: np.ndarray, database) -> np.ndarray:
+        """(database.size,) int32 scores of ``query`` against every
+        sequence of ``database`` (made by ``database``), in its order:
+        the sequence the text and the query the pattern, as
+        ``score(sequences, [query] * size, swap=False)`` gives them."""
+        from . import search
+
+        return search.search(self, query, database)
 
     def _dirs_tile_pairs(self, n_pad: int, m_pad: int,
                          d_count: int = 1) -> tuple[int, int]:

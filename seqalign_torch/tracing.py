@@ -9,10 +9,11 @@ the device.
 On, a span records its name, its own id, its parent's id (the innermost
 span open on the same thread), a request id, and its start and end from
 ``time.perf_counter_ns``.  A span opened with no parent on its thread is a
-request's root (``api.align`` on the program's paths): it opens a new
-request id, which every span under it carries.  ``rec`` holds the finished
-spans (``rec.spans``, in the order they ended) and the counters by name
-(``rec.counters``); nothing is written anywhere else.
+request's root (``api.align`` and ``batch.search`` on the program's
+paths): it opens a new request id, which every span under it carries.
+``rec`` holds the finished spans (``rec.spans``, in the order they ended)
+and the counters by name (``rec.counters``); nothing is written anywhere
+else.
 
 The spans and counters of the pair path:
 
@@ -25,6 +26,20 @@ The spans and counters of the pair path:
   one path tile (``Tiles.walk``), counted in ``checkpoint.tiles``;
 * ``native.emit``: the host's replay of the moves (linear or affine);
 * ``host_waits``: the reads of a device tensor to the host on these paths.
+
+The spans and counters of the database search (``parallel/search.py``):
+
+* ``batch.search``: a request (the root); attribute ``buckets``: its K3
+  launches, one a run of groups one kernel fills;
+* ``search.dispatch``: the query's upload and the K3 launches;
+* ``search.tail``: the sequences above the tail threshold, K1's (a
+  ``checkpoint.fill`` each);
+* ``search.collect``: the scores to the host;
+* ``search.buckets`` (K3 launches), ``search.cells`` (the query's length
+  times the database's residues), ``search.cells_padded`` (the cells the
+  kernels are given: K3's groups at their widths by the query's rows to
+  a stripe, K1's strips by their steps), ``search.tail_pairs``, and
+  ``host_waits`` at each read-back.
 """
 
 from __future__ import annotations

@@ -351,3 +351,62 @@ def test_program_spans_leave_the_existing_readings_as_they_are():
     assert [g[0].split("@")[0] for g in named["idle_gaps"]] == [
         "checkpoint.tile", "checkpoint.traceback", "api.align",
         "checkpoint.tile", "request"]
+
+
+def search_case(monkeypatch, tail=None):
+    """A small protein database (one sequence of 200 letters, above a
+    tail threshold of 150) and a query, on a one-device CPU mesh."""
+    from seqalign_torch.parallel import BatchAligner, search
+
+    if tail is not None:
+        monkeypatch.setattr(search, "TAIL_LETTERS", tail)
+    rng = np.random.default_rng(40)
+    seqs = [rng.integers(0, 20, int(n)).astype(np.int8)
+            for n in rng.integers(0, 120, 100)]
+    seqs.append(rng.integers(0, 20, 200).astype(np.int8))
+    al = BatchAligner(score_matrix(23), 23, 12, local=True, gap_extend=2,
+                      device="cpu")
+    db = al.database(seqs)
+    return al, db, rng.integers(0, 20, 37).astype(np.int8)
+
+
+@pytest.mark.parametrize("tail", [150, None])
+def test_search_spans_nest_under_batch_search(monkeypatch, tail):
+    al, db, query = search_case(monkeypatch, tail)
+    with tracing.recording() as rec:
+        al.search(query, db)
+    (root,) = [s for s in rec.spans if s.parent is None]
+    assert root.name == "batch.search"
+    assert root.attrs["buckets"] == rec.counters["search.buckets"] == 1
+    names = {s.name for s in rec.spans if s.parent == root.id}
+    assert names == {"search.dispatch", "search.tail", "search.collect"}
+    assert {s.request for s in rec.spans} == {root.request}
+    tails = rec.counters.get("search.tail_pairs", 0)
+    assert tails == (1 if tail else 0)
+    fills = [s for s in rec.spans if s.name == "checkpoint.fill"]
+    assert len(fills) == tails
+    tail_span = next(s for s in rec.spans if s.name == "search.tail")
+    assert all(s.parent == tail_span.id for s in fills)
+    # One read-back of the scores, and the tail's own (two a strip).
+    assert rec.counters["host_waits"] == 1 + 2 * tails
+
+
+def test_search_counts_its_cells(monkeypatch):
+    al, db, query = search_case(monkeypatch, 150)
+    with tracing.recording() as rec:
+        al.search(query, db)
+    assert rec.counters["search.cells"] == len(query) * db.residues
+    assert rec.counters["search.cells_padded"] >= rec.counters["search.cells"]
+
+
+def test_search_off_records_nothing(monkeypatch):
+    al, db, query = search_case(monkeypatch, 150)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("tracing did work while off")
+
+    monkeypatch.setattr(tracing, "_clock", refuse)
+    monkeypatch.setattr(tracing, "Span", refuse)
+    monkeypatch.setattr(tracing.Recording, "_count", refuse)
+    assert al.search(query, db).shape == (db.size,)
+    assert tracing._rec is None
