@@ -286,7 +286,22 @@ without its last line:
     engines and ``SmithWaterman.score()`` equal on its pair; then
     ``python -m seqalign_torch.bench.headline`` in a process of its own,
     its last line parsed as the four-key JSON, beside phase 8's K3.
-35. A ``launch_ledger`` JSON line (each kernel row's launches and device
+35. K3's and K3-cell16's search layout (``sa_interpair[16]_search``, the
+    12 ``kSearch`` instances) against the plain ``search_score`` on the
+    ragged groups of a ``Database`` of 400 protein sequences, queries of
+    1, 37 and 300 letters, the three modes, linear and affine: int32
+    cells over every group, int16 over the groups the search's gate
+    admits (``int16_local_ok`` in local mode, ``int16_cells_ok`` in the
+    others), every score equal to the plain version's and, int16, to the
+    int32 kernel's; then ``db.score``'s shapes (``phase_search_edge``):
+    local, linear and affine, queries of 1,440 and 5,147 letters (a run
+    of 1,440 W's in each) against groups up to 8,192 wide and the local
+    gate's edge, a group of width 1,437 (a run of 1,437 W's, 15,807) and
+    one of 1,436 (1,436 W's, 15,796), the split group checked against
+    the cap's own quotient, K3 and K3-cell16 against the plain version
+    run on the card's tensors, and ``BatchAligner.search`` (two streams)
+    against both.  Exact.
+36. A ``launch_ledger`` JSON line (each kernel row's launches and device
     ms summed over every launch made under a user entry point, timed
     between CUDA events from phase 2 on, in all and by phase), the
     longest K3 launch of the ragged mixes (phases 7, 20, 24) beside its
@@ -341,6 +356,7 @@ from seqalign_torch.ops import (_build, batch_fill, batch_traceback,
                                 walk, wavefront)
 from seqalign_torch.parallel import BatchAligner
 from seqalign_torch.parallel import mesh as mesh_lib
+from seqalign_torch.parallel import search as search_lib
 from seqalign_torch.parallel import sequence, worker
 from seqalign_torch.probes import (batch_walk_shapes, dpx16, walk_costs,
                                    walk_shapes)
@@ -2143,6 +2159,174 @@ def phase_cell16_main_path(cases, oracle, device="cuda", costs=None):
             f"{t2 - t1:.2f} s, launches {delta}; scores and alignments == "
             f"the oracle's")
     return batch_launches()
+
+
+def phase_search_kernels(device="cuda:0"):
+    """Phase 35: K3's and K3-cell16's search layout (their 12 ``kSearch``
+    instances, ``sa_interpair[16]_search``) against the plain
+    ``search_score`` on the ragged groups of a ``Database`` (400 protein
+    sequences of 1-1,000 letters, groups of 64 at their own widths, padding
+    pairs in the last), queries of 1, 37 and 300 letters, global, local
+    and semi-global, linear and affine: int32 cells over every group,
+    int16 over the groups the search's gate admits (``int16_local_ok`` in
+    local mode, ``int16_cells_ok`` in the others), every score equal to
+    the plain version's and, int16, to the int32 kernel's (padding pairs
+    NEG_16 for NEG_INF).  Returns the launches checked."""
+    rng = np.random.default_rng(2035)
+    k = 23
+    sm_np = score_matrix(k)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(150), 0.8, 400)), 1,
+                      1000)
+    lengths[:2] = (1, 1000)
+    seqs = [rng.integers(0, 20, size=int(n), dtype=np.int8) for n in lengths]
+    share = BatchAligner(sm_np, k, 12, local=True,
+                         device=device).database(seqs).shares[0]
+    widths = share.widths
+    groups = widths.shape[0]
+    tensors = {"card": (share.texts, share.groups, share.ns,
+                        torch.from_numpy(sm_np).to(device)),
+               "plain": (share.texts.cpu(), share.groups.cpu(),
+                         share.ns.cpu(), torch.from_numpy(sm_np))}
+    launches = 0
+    for m in (1, 37, 300):
+        query = rng.integers(0, 20, size=m, dtype=np.int8)
+        stripe = batch_fill.DIR_ROWS_PER_WORD
+        rows = -(-m // stripe) * stripe
+        for mode, kw in MODES.items():
+            gate = (batch_fill.int16_local_ok if mode == "local"
+                    else batch_fill.int16_cells_ok)
+            for gap, ext in ((12, 2), (6, None)):
+                g16 = next((g for g in range(groups)
+                            if gate(int(widths[g]), rows, sm_np, k, gap,
+                                    ext)), groups)
+                what = f"search {mode} {gap}/{ext} m={m}"
+                got = {}
+                for cell16, g0 in ((False, 0), (True, g16)):
+                    if g0 == groups:
+                        continue
+                    lo, pair0 = int(share.offsets[g0]), g0 * batch_fill.GROUP
+                    out = {}
+                    for where, (texts, offs, ns, sm) in tensors.items():
+                        q = torch.from_numpy(query).to(texts.device)
+                        out[where] = batch_fill.search_score(
+                            texts[lo:], offs[g0:], int(widths[g0]),
+                            ns[pair0:], q, sm, gap, k, gap_extend=ext,
+                            cell16=cell16, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out["card"].cpu(), out["plain"]),
+                          f"{what} int{16 if cell16 else 32}: "
+                          f"{int((out['card'].cpu() != out['plain']).sum())}"
+                          f" scores differ from the plain version's")
+                    got[cell16] = out["card"]
+                    launches += 1
+                if True in got:
+                    pair0 = g16 * batch_fill.GROUP
+                    int16_real([got[True]], [got[False][pair0:]],
+                               share.ns[pair0:], f"{what} int16")
+                log(f"{what}: {groups} groups of widths {int(widths[0])}-"
+                    f"{int(widths[-1])}, int32 over all, int16 from group "
+                    f"{g16}: == the plain version's"
+                    + (" and, int16, the int32 kernel's" if True in got
+                       else ""))
+    return launches + phase_search_edge(device)
+
+
+def phase_search_edge(device="cuda:0"):
+    """Phase 35, ``db.score``'s shapes: under BLOSUM62 (max|sub| 11, W
+    against W) the local gate ``int16_local_ok`` admits a group while 11 *
+    min(width, rows) <= INT16_VALUE_CAP, so at 1,440 rows and more up to
+    a width of 1,436.  A ``Database`` of 447 sequences: 192 of 1,438 to
+    8,192 letters (one of 8,192, the widest K3 takes), then a group of
+    64 of 1,437 letters, one a run of W's, a group of width 1,436 led by
+    a run of 1,436 W's, and 190 shorter ones (a padding pair in the
+    last).
+    Queries of 1,440 W's and of 5,147 letters (the configuration's
+    longest) with a run of 1,440 W's inside, local, linear (12) and
+    affine (12 / 2): the search's split group equal to the first group
+    no wider than the cap's quotient; K3 over every group and K3-cell16
+    over the admitted ones equal to the plain ``search_score``, run on
+    the card's tensors (on the host it would take minutes a case), and
+    K3-cell16 to K3; the W runs scoring 15,807 (int32) and 15,796
+    (int16); ``BatchAligner.search`` (the int16 run and the int32 run
+    beside it on the tail's stream) equal to both, in database order.
+    Returns the launches checked."""
+    rng = np.random.default_rng(2036)
+    k = 23
+    sm_np = score_matrix(k)
+    edge = batch_fill.INT16_VALUE_CAP // int(np.abs(sm_np).max())
+    w = int(np.argmax(np.diag(sm_np)))
+    wide = rng.integers(edge + 2, search_lib.TAIL_LETTERS, size=191)
+    lengths = np.concatenate([[search_lib.TAIL_LETTERS], wide,
+                              np.full(64, edge + 1), [edge],
+                              rng.integers(1, edge, size=190)])
+    seqs = [rng.integers(0, 20, size=int(n), dtype=np.int8)
+            for n in lengths]
+    runs = {192: edge + 1, 256: edge}  # database index -> its W run
+    for i, n in runs.items():
+        seqs[i] = np.full(n, w, dtype=np.int8)
+    long_query = rng.integers(0, 20, size=5147, dtype=np.int8)
+    at = int(rng.integers(0, 5147 - (edge + 4)))
+    long_query[at:at + edge + 4] = w
+    sm = torch.from_numpy(sm_np).to(device)
+    launches = 0
+    for ext in (2, None):
+        aligner = BatchAligner(sm_np, k, 12, gap_extend=ext, local=True,
+                               device=device)
+        db = aligner.database(seqs)
+        check(len(db.shares) == 1 and not db.shares[0].tail,
+              "the edge database is not one share with no tail")
+        share = db.shares[0]
+        widths = share.widths
+        groups = widths.shape[0]
+        for query in (np.full(edge + 4, w, dtype=np.int8), long_query):
+            m = query.shape[0]
+            stripe = batch_fill.DIR_ROWS_PER_WORD
+            rows = -(-m // stripe) * stripe
+            what = f"search edge local 12/{ext} m={m}"
+            g16 = search_lib._first_cell16(aligner, widths, rows)
+            check(g16 == int(np.argmax(widths <= edge))
+                  and int(widths[g16 - 1]) == edge + 1
+                  and int(widths[g16]) == edge,
+                  f"{what}: int16 from group {g16} of widths "
+                  f"{widths.tolist()}, not from the first of width {edge}")
+            q = torch.from_numpy(query).to(device)
+            got = {}
+            for cell16, g0 in ((False, 0), (True, g16)):
+                lo, pair0 = int(share.offsets[g0]), g0 * batch_fill.GROUP
+                args = (share.texts[lo:], share.groups[g0:], share.ns[pair0:],
+                        q, sm, 12, k)
+                card = batch_fill.search_score(
+                    args[0], args[1], int(widths[g0]), *args[2:],
+                    local=True, gap_extend=ext, cell16=cell16)
+                plain = batch_fill._search_plain(*args, True, False, ext,
+                                                 cell16)
+                torch.cuda.synchronize()
+                check(torch.equal(card, plain),
+                      f"{what} int{16 if cell16 else 32}: "
+                      f"{int((card != plain).sum())} scores differ from "
+                      f"the plain version's")
+                got[cell16] = card
+                launches += 1
+            int16_real([got[True]], [got[False][g16 * batch_fill.GROUP:]],
+                       share.ns[g16 * batch_fill.GROUP:], f"{what} int16")
+            in_order = torch.zeros(db.size + 1, dtype=torch.int32,
+                                   device=device)
+            in_order[share.where] = got[False]
+            in_order = in_order[:-1].cpu().numpy()
+            for i, n in runs.items():
+                check(int(in_order[i]) == 11 * n,
+                      f"{what}: the run of {n} W's scores {in_order[i]}, "
+                      f"not {11 * n}")
+            searched = aligner.search(query, db)
+            check(np.array_equal(searched, in_order),
+                  f"{what}: BatchAligner.search differs from the kernels "
+                  f"at {int((searched != in_order).sum())} sequences")
+            log(f"{what}: {groups} groups of widths {int(widths[0])}-"
+                f"{int(widths[-1])}, int16 from group {g16} (width "
+                f"{int(widths[g16])}), the W runs {11 * (edge + 1)} and "
+                f"{11 * edge}: K3, K3-cell16 and the search == the plain "
+                f"version's")
+    return launches
 
 
 def phase_dpx16():
@@ -4729,6 +4913,10 @@ def run(procs):
     bench = phase_bench(procs, sw)
     log(f"phase 34 (the suite verbs and the headline): "
         f"{time.time() - t0:.1f} s")
+    t0 = begin_phase("35")
+    search_launches = phase_search_kernels()
+    log(f"phase 35 (K3's search layout against its plain version): "
+        f"{time.time() - t0:.1f} s, {search_launches} launches")
 
     # K1 with words from column 0 (phases 4-5); K2 wherever it walks
     # (phases 4-5 and the path tiles of phases 11-12); K1's checkpoint

@@ -77,7 +77,11 @@ def int16_cells() -> str:
     ``"0"`` never, ``"1"`` every bucket, and refuses (ValueError) one that
     is not admitted.  ``SEQALIGN_INT16_CELLS`` in 0 / 1 / auto overrides,
     as in the JAX package; otherwise ``"0"`` (the JAX default reads a TPU
-    validation marker, which says nothing of the card)."""
+    validation marker, which says nothing of the card).  It rules the
+    batch path (``BatchAligner.score``/``.align``) and the global and
+    semi-global search; a local search takes int16 cells wherever
+    ``batch_fill.int16_local_ok`` admits a group, whatever it says
+    (``parallel/search.py``)."""
     forced = os.environ.get("SEQALIGN_INT16_CELLS", "").lower()
     return forced if forced in ("0", "1", "auto") else "0"
 

@@ -30,10 +30,11 @@ group a (width, GROUP) [column][pair] block of its own width.
 ``cell16=True`` runs the same DP in int16 cells (the JAX kernel's
 ``cell16`` mode): ``NEG_16`` sentinels in place of ``NEG_HALF`` and
 ``NEG_INF``, int32 words, best cells and scores.  Callers gate it on
-``int16_cells_ok`` over the padded widths, as the JAX callers do.
-Inside the gate no value wraps, so every output equals the int32 mode's
-except the scores of padding pairs (ns = 0): ``NEG_16`` where int32
-gives ``NEG_INF`` (global and semi).
+``int16_cells_ok`` over the padded widths, as the JAX callers do, or in
+local mode on ``int16_local_ok`` (the search does).  Inside the gate no
+value wraps, so every output equals the int32 mode's except the scores
+of padding pairs (ns = 0): ``NEG_16`` where int32 gives ``NEG_INF``
+(global and semi).
 
 For tensors on a CUDA device the wrappers launch the kernel
 (``csrc/interpair.cu``; ``csrc/interpair16.cu`` with ``cell16``), after
@@ -75,6 +76,47 @@ def int16_cells_ok(n_pad: int, m_pad: int, score_matrix, k_alpha: int,
     ge = abs(int(gap_extend)) if gap_extend is not None else g
     bound = max_sub * min(n_pad, m_pad) + max(g, ge) * (n_pad + m_pad)
     return bound <= INT16_VALUE_CAP
+
+
+def int16_local_ok(n_pad: int, m_pad: int, score_matrix, k_alpha: int,
+                   gap, gap_extend=None) -> bool:
+    """True when every value of a local fill fits the int16 cells: B =
+    max|sub| * min(n_pad, m_pad) <= INT16_VALUE_CAP, with costs 0 <=
+    extend <= open <= INT16_VALUE_CAP (linear: 0 <= gap <= the cap).
+
+    No gap term: it bounds global and semi values, which run down to
+    -gap * (n + m), and a local fill floors H at 0.  Against the int16
+    kernel's arithmetic (``csrc/interpair16.cu``, and ``_fill_plain``'s),
+    with g the open (or linear) cost and ge the extend:
+
+    * H lies in [0, B]: a local path ending at (i, j) takes at most
+      min(i, j) diagonal steps of at most max|sub| each, and every gap
+      costs >= 0.  Padded rows and columns are letter 0, so they score
+      within max|sub| too; the bound is over the padded widths.
+    * E and F lie in [-g, B - g] from the first column (row) on: E =
+      max(E - ge, left - g) with left >= 0, and their NEG_16 start is
+      replaced at the first step, since NEG_16 - ge < -g.  Before that
+      replacement E - ge = NEG_16 - ge >= -2^14 - the cap; after it, E -
+      ge >= -g - ge >= -2 * the cap.
+    * diag + s lies in [min sub, B + max|sub|], and max|sub| <= B (a
+      width is >= 1), so in [-the cap, 2 * the cap].
+    * The two cells of a 32-bit register are independent pairs: the
+      packed add, subtract and max act on each half alone.
+    * The trackers start at NEG_16, below every H.
+
+    So every value lies in [-(2^14 + the cap), 2 * the cap] = [-32,184,
+    31,600], inside int16.  The cap's headroom below 2^14 (584; in the
+    all-mode bound, the room for open + sub above the sentinel) still
+    covers three of these facts: B + max|sub| <= 2 * the cap < 2^15, -g
+    above NEG_16 - ge (the first step's replacement), and NEG_16 - ge and
+    -g - ge >= -2^15.  Any cap below 2^14 would keep them."""
+    g = int(gap)
+    ge = int(gap_extend) if gap_extend is not None else g
+    if not 0 <= ge <= g <= INT16_VALUE_CAP:
+        return False
+    sm = np.asarray(score_matrix)[:k_alpha, :k_alpha]
+    max_sub = int(np.abs(sm).max(initial=0))
+    return max_sub * min(n_pad, m_pad) <= INT16_VALUE_CAP
 
 
 def mode_code(local: bool, semi: bool) -> int:
@@ -336,7 +378,8 @@ def search_score(texts, groups, width: int, ns, query, score_matrix, gap,
                  gap_extend=None, cell16: bool = False):
     """Scores of ``query`` against every pair of a run of search groups
     (``csrc/interpair.cu``'s search layout; int16 cells with ``cell16``,
-    which the caller gates on ``int16_cells_ok``).
+    which the caller gates on ``int16_local_ok`` in local mode and on
+    ``int16_cells_ok`` in the others).
 
     texts: int8, the run's groups' blocks, group g's (width_g, GROUP)
     [column][pair] block from ``groups[g] - groups[0]``, the blocks in
@@ -434,15 +477,16 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
     terms E[k] leaves out are no larger, since gap >= ge: extending E[k]
     beats closing it and reopening.
 
-    ``cell16``: the cells are torch.int16, E, F and the trackers start at
-    NEG_16, and the words, best cells and scores widen to int32, as in
-    the JAX kernel's int16 mode.  The running maxima stay exact in int16
-    inside ``int16_cells_ok``'s bound B <= INT16_VALUE_CAP over the padded
-    widths: every cell, E, F, T and diagonal is a path score with |v| <= B
-    (E and F at least one real path's, the sentinel never below NEG_16 -
-    extend * N), and gap * N, extend * N <= B, so T + gap * k,
-    T - gap + extend * (k + 1) and NEG_16 - extend * j all lie in
-    [-(2^14 + B), 2B] = [-32,184, 31,600], inside int16's range.
+    ``cell16``: the cells, E and F are torch.int16, E, F and the
+    trackers start at NEG_16, and the words, best cells and scores widen
+    to int32, as in the JAX kernel's int16 mode.  The running maxima are
+    taken in int32, since their ramps (gap * k, extend * (k + 1)) leave
+    int16 at the widths ``int16_local_ok`` admits (12 * 8,192), and their
+    results, H and E, are narrowed to int16; a ValueError at the end if
+    one left [NEG_16 - INT16_VALUE_CAP, 2 * INT16_VALUE_CAP], the range
+    in which ``int16_cells_ok`` and ``int16_local_ok`` hold every cell,
+    E, F, T and diagonal (their docstrings; B <= the cap), so the check
+    never fails inside them, and the outputs are the kernel's.
 
     Returns (scores, best_is, best_js, dirs or None, dirs2 or None)."""
     device = texts.device
@@ -461,8 +505,20 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
     n = ns.long().clamp(max=n_cols)[:, None]
     m = ms.long().clamp(max=m_rows)
     col = torch.arange(n_cols, device=device)[None, :]  # j: DP column j+1
-    ramp = ((ge if affine else gap)
-            * torch.arange(n_cols + 1, device=device)).to(cdt)
+    ramp = (ge if affine else gap) * torch.arange(n_cols + 1, dtype=i32,
+                                                  device=device)
+    # cell16: the least and the largest running maximum narrowed to
+    # int16, checked at the end.
+    lo = hi = torch.zeros((), dtype=i32, device=device)
+
+    def narrow(x):
+        nonlocal lo, hi
+        if not cell16:
+            return x
+        x_lo, x_hi = torch.aminmax(x)
+        lo, hi = torch.minimum(lo, x_lo), torch.maximum(hi, x_hi)
+        return x.to(cdt)
+
     in_text = col < n
     if local or semi:
         prev = torch.zeros((b, n_cols), dtype=cdt, device=device)
@@ -501,9 +557,9 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
                 t = t.clamp_min(0)
             # E[j] + ge*j for j = 1..N: the running maximum over the
             # columns k < j of T[k] - gap + ge*(k+1), T[0] = H[i, 0].
-            opened = torch.cat([h0, t[:, :-1]], dim=1) - gap + ramp[1:]
-            e = (torch.cummax(opened, dim=1).values.clamp_min(neg_run)
-                 - ramp[1:])
+            opened = torch.cat([h0, t[:, :-1]], dim=1) + (ramp[1:] - gap)
+            e = narrow(torch.cummax(opened, dim=1).values.clamp_min(neg_run)
+                       - ramp[1:])
             cur = torch.maximum(t, e)
             gap_best = torch.maximum(e, f)
             is_left = e >= f
@@ -513,7 +569,7 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
                 t = t.clamp_min(0)
             chain = torch.cummax(torch.cat([h0, t], dim=1) + ramp,
                                  dim=1).values
-            cur = (chain - ramp)[:, 1:]
+            cur = narrow((chain - ramp)[:, 1:])
         if with_dirs:
             left = torch.cat([h0, cur[:, :-1]], dim=1)
             if not affine:
@@ -551,6 +607,10 @@ def _fill_plain(texts, patterns, ns, ms, score_matrix, gap, k_alpha, local,
         prev = cur
         if affine:
             f_prev = f
+    if cell16 and not (NEG_16 - INT16_VALUE_CAP <= int(lo)
+                       and int(hi) <= 2 * INT16_VALUE_CAP):
+        raise ValueError(f"int16 cells: values {int(lo)}..{int(hi)} leave "
+                         f"the gates' range (the shape is outside them)")
     scores = (acc.clamp_min(0) if local else acc).to(i32)
     if not with_dirs:
         return scores, bi, bj, None, None

@@ -16,11 +16,19 @@ sequence, in database order, with the aligner's costs and mode (the
 exact local affine scores of CUDASW++ for ``local=True`` and
 ``gap_extend``).  A request's host work is O(buckets): ``dispatch``
 uploads the query once to each entry and launches K3 once for each run
-of groups that one kernel fills (int32 cells, then the groups whose
-width ``cell16_for`` admits in int16 cells; ``search_score``, the query
-shared by every pair, no copy of it a pair), the scores then scattered
-into database order on the device; ``search.collect`` brings them back
-in one copy an entry.  The longest sequences, above ``TAIL_LETTERS``,
+of groups that one kernel fills (``search_score``, the query shared by
+every pair, no copy of it a pair): the int16 cells (K3-cell16) for the
+groups whose width, against the query's rows, the gate admits, then the
+int32 cells for the wider ones, beside them on the tail's stream.
+In local mode the gate is ``int16_local_ok``, whatever
+``SEQALIGN_INT16_CELLS`` says: H >= 0 there, so the gaps add nothing to
+the bound, which with BLOSUM62 (max|sub| 11) admits every group of width
+<= 1,436 and, for a query of up to 1,424 letters, every group.  The
+int16 cells give the int32 cells' scores exactly, two cells a 32-bit
+lane.  In global and semi mode the gate is ``cell16_for``, as in
+``BatchAligner.score``.  The scores are then scattered into database
+order on the device; ``search.collect`` brings them back in one copy an
+entry.  The longest sequences, above ``TAIL_LETTERS``,
 would hold one CTA for longer than the rest of the request takes (a
 pair is one lane's chain of warps), so they go to K1 score-only
 (``checkpoint.checkpointed_fill``) on a stream of their own, at a
@@ -66,9 +74,12 @@ class _Share:
     groups' blocks back to back (int8), ``groups`` (G,) int64 their
     offsets, ``ns`` (G * GROUP,) int32 the lengths (0 for padding),
     ``where`` (G * GROUP,) int64 each pair's database index (``size`` for
-    padding); ``widths`` and ``offsets`` (G + 1,) on the host; ``tail``
+    padding); ``widths`` (G,), ``offsets`` and ``residues_before`` (the
+    residues of the groups before each, G + 1) on the host; ``tail``
     the entry's K1 pairs, (database index, int8 letters on the host:
-    ``checkpointed_fill`` uploads a pair's few KB itself)."""
+    ``checkpointed_fill`` uploads a pair's few KB itself); ``stream``, on
+    a CUDA device, the int32 groups' and the tail's (``dispatch``,
+    ``_tail``)."""
 
     def __init__(self, device, letters, starts, lengths, pairs, size,
                  tail):
@@ -84,7 +95,9 @@ class _Share:
         self.ns = torch.from_numpy(lens.astype(np.int32)).to(device)
         self.where = torch.from_numpy(
             np.where(pairs >= 0, pairs, size)).to(device)
-        self.residues = int(lens.sum())
+        self.residues_before = np.concatenate(
+            [[0], np.cumsum(lens.reshape(-1, GROUP).sum(axis=1))])
+        self.residues = int(self.residues_before[-1])
         self.tail = tail
         self.stream = (torch.cuda.Stream(device, priority=-1)
                        if device.type == "cuda" else None)
@@ -165,10 +178,15 @@ class Database:
 
 def dispatch(aligner, database: Database, query: np.ndarray) -> list:
     """Queue a request on every local entry: the query's upload, K3 over
-    each run of groups one kernel fills (int32 cells, then int16 where
-    ``cell16_for`` admits the width), and the scatter of the scores into
-    database order.  Returns, an entry, (the scores in database order on
-    the device with a last slot for the padding pairs, the launches)."""
+    each run of groups one kernel fills, and the scatter of the scores
+    into database order.  The groups ``_first_cell16``'s gate admits, the
+    shortest, go first, in int16 cells on the entry's stream; the wider
+    ones then in int32 cells, beside them on ``share.stream``, ahead of
+    the tail's pairs: a launch of the widest groups alone lasts as long
+    as its longest CTA, and on one stream with the int16 run the card
+    would wait out that CTA's tail (PERF.md §6, PR 21).  Returns, an entry,
+    (the scores in database order on the device with a last slot for the
+    padding pairs, the launches)."""
     mesh = aligner.mesh
     m = query.shape[0]
     stripe = batch_fill.DIR_ROWS_PER_WORD
@@ -181,36 +199,64 @@ def dispatch(aligner, database: Database, query: np.ndarray) -> list:
             scores = torch.zeros(database.size + 1, dtype=torch.int32,
                                  device=share.device)
             g16 = _first_cell16(aligner, share.widths, rows)
+            groups = share.widths.shape[0]
+            # The int32 run goes beside an int16 run; alone, it keeps the
+            # entry's stream and the tail runs beside it.
+            side = share.stream if 0 < g16 < groups else None
+            if side is not None:
+                main = torch.cuda.current_stream(share.device)
+                uploaded = main.record_event()
             launches = 0
-            for g0, g1, cell16 in ((0, g16, False),
-                                   (g16, share.widths.shape[0], True)):
+            for g0, g1, cell16 in ((g16, groups, True), (0, g16, False)):
                 if g0 == g1:
                     continue
-                lo, hi = int(share.offsets[g0]), int(share.offsets[g1])
-                got = batch_fill.search_score(
-                    share.texts[lo:hi], share.groups[g0:g1],
-                    int(share.widths[g0]),
-                    share.ns[g0 * GROUP:g1 * GROUP], q, sms[e],
-                    aligner.gap_penalty, aligner.alphabet_size,
-                    local=aligner.local, semi=aligner.semi,
-                    gap_extend=aligner.gap_extend, cell16=cell16)
+                run = (aligner, share, q, sms[e], g0, g1, cell16)
+                if cell16 or side is None:
+                    got = _fill(*run)
+                else:
+                    side.wait_event(uploaded)
+                    q.record_stream(side)
+                    with torch.cuda.stream(side):
+                        got = _fill(*run)
+                    main.wait_stream(side)
+                    got.record_stream(main)
                 scores[share.where[g0 * GROUP:g1 * GROUP]] = got
                 launches += 1
-                tracing.count("search.cells_padded", rows * (hi - lo))
+                tracing.count("search.cells_padded", rows * int(
+                    share.offsets[g1] - share.offsets[g0]))
+                if cell16:
+                    tracing.count("search.cells16", m * int(
+                        share.residues_before[g1]
+                        - share.residues_before[g0]))
         out.append((scores, launches))
     return out
 
 
+def _fill(aligner, share, q, sm, g0: int, g1: int, cell16: bool):
+    """K3 over the share's groups g0..g1 on the current stream: their
+    scores, (g1 - g0) * GROUP int32 in the groups' order."""
+    lo, hi = int(share.offsets[g0]), int(share.offsets[g1])
+    return batch_fill.search_score(
+        share.texts[lo:hi], share.groups[g0:g1], int(share.widths[g0]),
+        share.ns[g0 * GROUP:g1 * GROUP], q, sm, aligner.gap_penalty,
+        aligner.alphabet_size, local=aligner.local, semi=aligner.semi,
+        gap_extend=aligner.gap_extend, cell16=cell16)
+
+
 def _first_cell16(aligner, widths: np.ndarray, rows: int) -> int:
     """The first group (widths longest first) whose shape (width, query
-    rows) ``cell16_for`` takes in int16 cells, or the group count: the
-    admitted widths are the shortest, so a binary search."""
+    rows) takes int16 cells, or the group count: in local mode those
+    ``batch_fill.int16_local_ok`` admits, whatever
+    ``SEQALIGN_INT16_CELLS`` says; in global and semi mode those
+    ``cell16_for`` takes.  The admitted widths are the shortest, so a
+    binary search."""
+    gate = batch_fill.int16_local_ok if aligner.local else cell16_for
     lo, hi = 0, widths.shape[0]
     while lo < hi:
         mid = (lo + hi) // 2
-        if cell16_for(int(widths[mid]), rows, aligner.score_matrix,
-                      aligner.alphabet_size, aligner.gap_penalty,
-                      aligner.gap_extend):
+        if gate(int(widths[mid]), rows, aligner.score_matrix,
+                aligner.alphabet_size, aligner.gap_penalty,
+                aligner.gap_extend):
             hi = mid
         else:
             lo = mid + 1

@@ -6,7 +6,12 @@ and timed at a Swiss-Prot-sized database against the tail threshold.
   letters, in local, global and semi-global mode, linear and affine
   gaps, int32 cells and under ``SEQALIGN_INT16_CELLS=auto``, on a mesh of
   one entry and of ``cuda:0`` twice: every score equal to the native
-  oracle's;
+  oracle's; then the local int16 gate's edge under BLOSUM62 (max|sub|
+  11, W-W): a run of 1,436 W's (15,796) in a group of width 1,436 and of
+  1,437 W's in one of 1,437, against a query of 1,440 W's, linear and
+  affine: the first group in int16 cells, the second in int32, every
+  score equal to the int32 kernel's, the plain version's (a CPU entry)
+  and the oracle's;
 * ``--time``: 570,000 sequences of log-normal lengths (median 290, sigma
   0.66, 2 to 35,213 letters, one of 35,213) packed once a threshold
   (``search.TAIL_LETTERS``, set for the probe's process),
@@ -105,6 +110,64 @@ def check(device="cuda:0", count=2000, longest=3000,
                               f"({int((got != want).sum())} of {len(seqs)}"
                               f" differ)", flush=True)
     os.environ.pop("SEQALIGN_INT16_CELLS", None)
+    return ok & check_edge(device)
+
+
+def check_edge(device="cuda:0", edge=1436) -> bool:
+    """The local int16 gate's edge (``batch_fill.int16_local_ok``): under
+    BLOSUM62, 11 * min(width, 1,440 rows) <= 15,800 admits a width of
+    1,436 and refuses 1,437."""
+    rng = np.random.default_rng(22)
+    sm = blosum62()
+    w = int(np.argmax(np.diag(sm)))  # W, 11 against itself
+    query = np.full(edge + 4, w, dtype=np.int8)
+    seqs = [np.full(edge + 1, w, dtype=np.int8),
+            np.full(edge, w, dtype=np.int8)]
+    seqs += [rng.integers(0, 20, size=edge + 1, dtype=np.int8)
+             for _ in range(63)]
+    seqs += [rng.integers(0, 20, size=int(n), dtype=np.int8)
+             for n in rng.integers(1, edge + 1, size=70)]
+    ok = True
+    for ext in (2, None):
+        want = oracle(seqs, query, sm, "local", 12, ext)
+        ok &= int(want[0]) == 11 * (edge + 1) and int(want[1]) == 11 * edge
+        got = {}
+        for name, device_ in (("card", device), ("plain", "cpu")):
+            aligner = BatchAligner(sm, K, 12, gap_extend=ext, local=True,
+                                   device=device_)
+            db = aligner.database(seqs)
+            widths = [int(x) for x in db.shares[0].widths[:2]]
+            g16 = search_lib._first_cell16(aligner, db.shares[0].widths,
+                                           query.shape[0])
+            with tracing.recording() as rec:
+                got[name] = aligner.search(query, db)
+            if name == "card":
+                first = search_lib._first_cell16
+                search_lib._first_cell16 = lambda al, ws, rows: ws.shape[0]
+                try:
+                    got["int32"] = aligner.search(query, db)
+                finally:
+                    search_lib._first_cell16 = first
+            routed = (widths == [edge + 1, edge] and g16 == 1
+                      and rec.counters["search.buckets"] == 2
+                      and 0 < rec.counters["search.cells16"]
+                      < rec.counters["search.cells"])
+            ok &= routed
+            print(f"SEARCH_EDGE {name} ext={ext}: widths {widths}, int16 "
+                  f"from group {g16}, buckets "
+                  f"{rec.counters['search.buckets']}, cells16 "
+                  f"{rec.counters['search.cells16']} of "
+                  f"{rec.counters['search.cells']}: "
+                  f"{'ok' if routed else 'ROUTED WRONG'}", flush=True)
+        for name, scores in got.items():
+            good = np.array_equal(scores, want)
+            ok &= good
+            print(f"SEARCH_EDGE ext={ext} {name}: scores {scores[0]} "
+                  f"(width {edge + 1}, int32) and {scores[1]} (width "
+                  f"{edge}, int16) of oracle {want[0]} and {want[1]}: "
+                  f"{'ok' if good else 'DIFFERS'} "
+                  f"({int((scores != want).sum())} of {len(seqs)} differ)",
+                  flush=True)
     return ok
 
 

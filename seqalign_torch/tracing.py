@@ -38,8 +38,10 @@ The spans and counters of the database search (``parallel/search.py``):
 * ``search.buckets`` (K3 launches), ``search.cells`` (the query's length
   times the database's residues), ``search.cells_padded`` (the cells the
   kernels are given: K3's groups at their widths by the query's rows to
-  a stripe, K1's strips by their steps), ``search.tail_pairs``, and
-  ``host_waits`` at each read-back.
+  a stripe, K1's strips by their steps), ``search.cells16`` (the query's
+  length times the residues of the groups filled in int16 cells: its
+  share of ``search.cells`` is the int16 gate's), ``search.tail_pairs``,
+  and ``host_waits`` at each read-back.
 """
 
 from __future__ import annotations

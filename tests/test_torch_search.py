@@ -8,12 +8,15 @@ is an integer: the comparisons are exact."""
 
 import numpy as np
 import pytest
+import torch
 
 from cellbench.reference import affine
 from seqalign_torch import tracing
 from seqalign_torch.native import bindings
+from seqalign_torch.ops import batch_fill
 from seqalign_torch.parallel import BatchAligner, Database
 from seqalign_torch.parallel import search as search_lib
+from seqalign_torch.parallel.batch import cell16_for
 
 from .torch_support import one_torch_thread, score_matrix  # noqa: F401
 
@@ -45,8 +48,8 @@ def query_of(seed, core, m):
     return q
 
 
-def oracle(seqs, query, mode="local", gap=GAP, ext=EXT):
-    sm = score_matrix(K)
+def oracle(seqs, query, mode="local", gap=GAP, ext=EXT, sm=None):
+    sm = score_matrix(K) if sm is None else sm
     if ext is None:
         return np.array([bindings.oracle_fill(ALGO[mode], s, query, sm, K,
                                               gap)[1] for s in seqs])
@@ -113,10 +116,19 @@ def test_tail_geometry_keeps_the_strip_to_the_query():
             assert m <= rps * slots < max(m, 128 * rps) + 128 * rps
 
 
-@pytest.mark.parametrize("cells", ["auto", "0"])
-def test_buckets_on_both_sides_of_cell16_for(monkeypatch, cells):
-    """Under ``auto`` the short groups take the int16 cells and the long
-    ones int32, two launches; under ``0`` one launch of int32 cells."""
+# A 23-letter matrix of max|sub| 100: the local int16 gate's edge at
+# 15,800 falls at a width of 158 (a query of rows >= 158).
+SM100 = np.where(np.eye(K, dtype=bool), 100, -30).astype(np.int32)
+
+
+@pytest.mark.parametrize("cells,mode", [("auto", "global"), ("0", "local")],
+                         ids=["auto", "0"])
+def test_buckets_on_both_sides_of_cell16_for(monkeypatch, cells, mode):
+    """Short groups take the int16 cells and long ones int32, two
+    launches, on both sides of the gate: a global search's gate is
+    ``cell16_for`` (under ``auto``; BLOSUM62), a local search's
+    ``int16_local_ok`` whatever ``SEQALIGN_INT16_CELLS`` says (under
+    ``0``; max|sub| 100, the edge at 158)."""
     monkeypatch.setenv("SEQALIGN_INT16_CELLS", cells)
     rng = np.random.default_rng(4)
     lengths = np.concatenate([rng.integers(1, 60, size=70),
@@ -124,18 +136,170 @@ def test_buckets_on_both_sides_of_cell16_for(monkeypatch, cells):
     seqs = [rng.integers(0, 20, size=int(n)).astype(np.int8)
             for n in lengths]
     query = rng.integers(0, 20, size=300).astype(np.int8)
-    al = aligner(device="cpu")
+    sm = score_matrix(K) if mode == "global" else SM100
+    al = BatchAligner(sm, K, GAP, gap_extend=EXT, device="cpu",
+                      **MODES[mode])
     db = al.database(seqs)
-    share = db.shares[0]
-    g16 = search_lib._first_cell16(al, share.widths, 304)
-    if cells == "auto":
-        assert 0 < g16 < share.widths.shape[0]
-    else:
-        assert g16 == share.widths.shape[0]
+    widths = db.shares[0].widths
+    g16 = search_lib._first_cell16(al, widths, 304)
+    assert 0 < g16 < widths.shape[0]
+    assert widths[g16 - 1] >= 900 > 60 > widths[g16]
     with tracing.recording() as rec:
         got = al.search(query, db)
-    assert rec.counters["search.buckets"] == (2 if cells == "auto" else 1)
-    np.testing.assert_array_equal(got, oracle(seqs, query))
+    assert rec.counters["search.buckets"] == 2
+    np.testing.assert_array_equal(got, oracle(seqs, query, mode, sm=sm))
+
+
+# (max|sub|, the query's rows, the widest admitted group): max|sub| *
+# min(width, rows) <= 15,800 (BLOSUM62's 11: 1,436).
+EDGES = [(11, 1440, 1436), (100, 176, 158), (127, 128, 124), (1, 16384, 15800)]
+
+
+@pytest.mark.parametrize("max_sub,rows,edge", EDGES)
+def test_int16_local_ok_at_its_edge(max_sub, rows, edge):
+    sm = np.full((K, K), -min(max_sub, 4), dtype=np.int32)
+    sm[3, 3] = max_sub
+    ok = batch_fill.int16_local_ok
+    assert max_sub * edge <= batch_fill.INT16_VALUE_CAP < max_sub * (edge + 1)
+    for gap, ext in ((12, 2), (12, None), (12, 12), (0, 0)):
+        assert ok(edge, rows, sm, K, gap, ext)
+        assert ok(rows, edge, sm, K, gap, ext)  # min(n, m): either side
+        assert not ok(edge + 1, rows, sm, K, gap, ext)
+        assert not ok(rows, edge + 1, sm, K, gap, ext)
+    # A query of rows <= the edge admits every width.
+    assert ok(8192, edge, sm, K, 12, 2)
+    # Costs outside 0 <= extend <= open <= the cap, never.
+    for gap, ext in ((batch_fill.INT16_VALUE_CAP + 1, 2), (2, 12), (-1, None),
+                     (12, -1)):
+        assert not ok(16, 16, sm, K, gap, ext)
+
+
+def planted_database(rng, lengths, planted):
+    """Random sequences of ``lengths`` with, in front, runs of letter 0
+    of the ``planted`` lengths (a query of 0s scores 100 a letter of
+    them under SM100)."""
+    seqs = [np.zeros(int(n), dtype=np.int8) for n in planted]
+    return seqs + [rng.integers(1, 20, size=int(n)).astype(np.int8)
+                   for n in lengths]
+
+
+def score_by_the_twin(monkeypatch, al, db, query, cell16):
+    """The search with every K3 group in int16 cells where the gate admits
+    it (``cell16``), or every group in int32 cells."""
+    with monkeypatch.context() as patch:
+        if not cell16:
+            patch.setattr(search_lib, "_first_cell16",
+                          lambda al, widths, rows: widths.shape[0])
+        with tracing.recording() as rec:
+            return al.search(query, db), rec.counters
+
+
+@pytest.mark.parametrize("gap,ext", [(12, 2), (12, None), (12, 5)])
+def test_search_straddling_the_local_edge(monkeypatch, gap, ext):
+    """A group of width 159 (int32 cells) and one of 158 (int16, values
+    at the cap: 158 matches of 100) against a query of 170 letters (176
+    rows): the twin in int16 and in int32 cells, both the oracle's."""
+    rng = np.random.default_rng(11)
+    lengths = np.concatenate([np.full(61, 159), rng.integers(1, 158, 70)])
+    seqs = planted_database(rng, lengths, [159, 159, 159, 158, 158, 120])
+    query = np.zeros(170, dtype=np.int8)
+    query[160:] = rng.integers(0, 20, size=10)
+    al = BatchAligner(SM100, K, gap, gap_extend=ext, local=True,
+                      device="cpu")
+    db = al.database(seqs)
+    share = db.shares[0]
+    assert list(share.widths[:2]) == [159, 158]
+    assert search_lib._first_cell16(al, share.widths, 176) == 1
+    want = oracle(seqs, query, "local", gap, ext, SM100)
+    assert list(want[:5]) == [15_900] * 3 + [batch_fill.INT16_VALUE_CAP] * 2
+    got16, counts = score_by_the_twin(monkeypatch, al, db, query, True)
+    got32, _ = score_by_the_twin(monkeypatch, al, db, query, False)
+    np.testing.assert_array_equal(got16, want)
+    np.testing.assert_array_equal(got32, want)
+    assert counts["search.buckets"] == 2
+    assert counts["search.cells16"] == 170 * int(share.residues_before[-1]
+                                                 - share.residues_before[1])
+    assert counts["search.cells"] == 170 * db.residues
+
+
+@pytest.mark.parametrize("gap,ext", [(12, None), (12, 5)])
+def test_search_at_the_widest_group_the_local_gate_admits(monkeypatch, gap,
+                                                         ext):
+    """The twin's ramp cases: a query of 144 letters (B = 14,400 under
+    max|sub| 100) admits groups as wide as the tail threshold, 8,192,
+    where gap * k and extend * (k + 1) leave int16; int16 and int32 cells
+    both the oracle's, a run of 144 matches among them."""
+    rng = np.random.default_rng(12)
+    lengths = np.concatenate([np.full(6, search_lib.TAIL_LETTERS),
+                              rng.integers(1, 300, 20)])
+    seqs = planted_database(rng, lengths, [search_lib.TAIL_LETTERS, 144])
+    # Sequence 0: two runs of 72 0s, 100 other letters apart, past the
+    # column (6,554 at extend 5) where the ramps leave int16: the query's
+    # 144 0s bridge them with one gap.
+    seqs[0] = rng.integers(1, 20, size=search_lib.TAIL_LETTERS).astype(
+        np.int8)
+    seqs[0][7000:7072] = seqs[0][7172:7244] = 0
+    query = np.zeros(144, dtype=np.int8)
+    al = BatchAligner(SM100, K, gap, gap_extend=ext, local=True,
+                      device="cpu")
+    db = al.database(seqs)
+    assert db.shares[0].widths[0] == search_lib.TAIL_LETTERS
+    assert search_lib._first_cell16(al, db.shares[0].widths, 144) == 0
+    want = oracle(seqs, query, "local", gap, ext, SM100)
+    assert want[1] == 14_400
+    assert want[0] == 14_400 - gap - (gap if ext is None else ext) * 99
+    got16, counts = score_by_the_twin(monkeypatch, al, db, query, True)
+    got32, _ = score_by_the_twin(monkeypatch, al, db, query, False)
+    np.testing.assert_array_equal(got16, want)
+    np.testing.assert_array_equal(got32, want)
+    assert counts["search.cells16"] == counts["search.cells"]
+
+
+@pytest.mark.parametrize("cells", ["0", "auto"])
+@pytest.mark.parametrize("mode", ["global", "semi", "local"])
+def test_the_search_gate_by_mode(monkeypatch, mode, cells):
+    """Global and semi searches take ``cell16_for``'s gate, as
+    ``BatchAligner.score`` does; a local search ``int16_local_ok``'s,
+    whatever ``SEQALIGN_INT16_CELLS`` says."""
+    monkeypatch.setenv("SEQALIGN_INT16_CELLS", cells)
+    rng = np.random.default_rng(13)
+    lengths = np.concatenate([rng.integers(1, 60, size=70),
+                              rng.integers(900, 960, size=70)])
+    seqs = [rng.integers(0, 20, size=int(n)).astype(np.int8)
+            for n in lengths]
+    query = rng.integers(0, 20, size=300).astype(np.int8)
+    al = aligner(mode, device="cpu")
+    db = al.database(seqs)
+    widths = db.shares[0].widths
+    gate = batch_fill.int16_local_ok if mode == "local" else cell16_for
+    admitted = [gate(int(w), 304, al.score_matrix, K, GAP, EXT)
+                for w in widths]
+    assert admitted == sorted(admitted)  # the shortest, last
+    g16 = search_lib._first_cell16(al, widths, 304)
+    assert g16 == (admitted + [True]).index(True)
+    if mode == "local":
+        assert g16 == 0  # every width <= 1,436
+    elif cells == "0":
+        assert g16 == widths.shape[0]
+    else:
+        assert 0 < g16 < widths.shape[0]
+    np.testing.assert_array_equal(al.search(query, db),
+                                  oracle(seqs, query, mode))
+
+
+def test_the_twin_refuses_values_past_the_gates_range():
+    """320 matches of 100 (32,000) fit int16 but leave the range in which
+    the gates hold every value: the int16 twin raises; int32 scores it."""
+    pair = torch.zeros((1, 320), dtype=torch.int8)
+    args = (pair, pair, torch.tensor([320], dtype=torch.int32),
+            torch.tensor([320], dtype=torch.int32), torch.from_numpy(SM100),
+            12, K)
+    assert not batch_fill.int16_local_ok(320, 320, SM100, K, 12, 2)
+    assert batch_fill.batch_score_plain(*args, local=True,
+                                        gap_extend=2).tolist() == [32_000]
+    with pytest.raises(ValueError, match="int16 cells"):
+        batch_fill.batch_score_plain(*args, local=True, gap_extend=2,
+                                     cell16=True)
 
 
 def test_the_answer_is_in_database_order():
