@@ -283,9 +283,7 @@ without its last line:
     batch-e2e, maxlength through K1 and through the tiled fill at its
     default 120,000 x 120,000, engines at its default 4,096), each
     verb's kernels launched and no plain version run; maxlength's two
-    engines and ``SmithWaterman.score()`` equal on its pair; then
-    ``python -m seqalign_torch.bench.headline`` in a process of its own,
-    its last line parsed as the four-key JSON, beside phase 8's K3.
+    engines and ``SmithWaterman.score()`` equal on its pair.
 35. K3's and K3-cell16's search layout (``sa_interpair[16]_search``, the
     12 ``kSearch`` instances) against the plain ``search_score`` on the
     ragged groups of a ``Database`` of 400 protein sequences, queries of
@@ -4429,7 +4427,7 @@ def phase_batch_processes(procs):
 SCORE_MODELS = {"global": NeedlemanWunsch(), "local": SmithWaterman(),
                 "semi": SemiGlobal()}
 # Phase 34: the suite verbs at reduced sizes (keyword arguments of each
-# verb; maxlength and engines at their own defaults), then the headline.
+# verb; maxlength and engines at their own defaults).
 BENCH_VERBS = (
     ("throughput", suite.throughput, dict(sizes=[(16384, 16384)])),
     ("throughput --local", suite.throughput,
@@ -4529,11 +4527,10 @@ def phase_score(pairs, oracle, wide, device="cuda"):
     return rows
 
 
-def phase_bench(procs, sw):
+def phase_bench():
     """Phase 34: each suite verb at a reduced size on the card (the
-    kernels' launches counted, no plain version run), maxlength's two
-    engines and score() on one pair, then the headline in a process of
-    its own, its last line parsed, beside phase 8's K3."""
+    kernels' launches counted, no plain version run), and maxlength's two
+    engines and score() on one pair."""
     counters = (("K1", wavefront.wavefront_strip),
                 ("K2", walk.walk_skewed_window),
                 ("K3-score", batch_fill.batch_score),
@@ -4569,24 +4566,6 @@ def phase_bench(procs, sw):
         log(f"maxlength {length} x {length}: K1 (wavefront_fill, score "
             f"only) and K5 (tiled_fill_score) both score {model}, as "
             f"SmithWaterman.score()")
-    t0 = time.time()
-    rc, out, err = procs.start([sys.executable, "-m",
-                                "seqalign_torch.bench.headline"])()
-    wall = time.time() - t0
-    check(rc == 0, f"headline: rc {rc}\n{err[-3000:]}")
-    record = json.loads(out.strip().splitlines()[-1])
-    check(set(record) == {"metric", "value", "unit", "vs_baseline"}
-          and record["metric"] == "sw_batch_fill"
-          and record["unit"] == "GCUPS" and record["value"] > 0,
-          f"headline: last line {record}")
-    b, n, m, _ = SCORE_WIDTH
-    k3_ms = sw["K3-score"]["ms"]
-    log(f"headline (python -m seqalign_torch.bench.headline, {wall:.1f} s): "
-        f"{json.dumps(record)}; {err.strip().splitlines()[-1]}; phase 8's "
-        f"K3 on the 512 x 639 bucket: {k3_ms:.3f} ms, "
-        f"{b * n * m / k3_ms / 1e6:.1f} GCUPS of the workload's cells")
-    rows["headline"] = record
-    rows["headline_wall_s"] = wall
     return rows
 
 
@@ -4910,8 +4889,8 @@ def run(procs):
         ("long pair", LONG_PAIR, "local", long_local, None)))
     log(f"phase 33 (score() on the card): {time.time() - t0:.1f} s")
     t0 = begin_phase("34")
-    bench = phase_bench(procs, sw)
-    log(f"phase 34 (the suite verbs and the headline): "
+    bench = phase_bench()
+    log(f"phase 34 (the suite verbs): "
         f"{time.time() - t0:.1f} s")
     t0 = begin_phase("35")
     search_launches = phase_search_kernels()

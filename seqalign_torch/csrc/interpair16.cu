@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "interpair_chain.cuh"
+#include "interpair_host.cuh"
 #include "launch_error.cuh"
 
 namespace {
@@ -73,22 +74,6 @@ namespace {
 using namespace interpair_chain;
 
 constexpr int kNeg16 = -(1 << 14);
-constexpr int kGlobal = 0, kLocal = 1, kSemi = 2;
-constexpr int kMaxWarps = 16;
-
-// The shape in code per variant, as the int32 K3's (warps_of, block_of;
-// probes/interpair_shapes.py --time, NVIDIA H100 80GB HBM3, 700 W):
-// score-only, linear at most 16 warps x 8 columns, 0.872 ms (8 x 8:
-// 1.216), affine 16 x 4, 1.121; with words, linear 8 x 4, 1.200 (16 x 2:
-// 1.223), affine 16 x 2, 1.981 (8 x 4: 1.978).
-__host__ __device__ constexpr int warps_of(bool dirs, bool affine) {
-  return dirs && !affine ? 8 : kMaxWarps;
-}
-
-__host__ __device__ constexpr int block_of(bool dirs, bool affine) {
-  if (dirs) return affine ? 2 : 4;
-  return affine ? 4 : 8;
-}
 
 // v cut to 16 bits in both halves.
 __device__ __forceinline__ uint32_t splat(int v) {
@@ -113,23 +98,6 @@ __device__ __forceinline__ uint32_t halves(bool lo, bool hi) {
 __device__ __forceinline__ uint32_t dir_code(bool not_diag, bool is_left,
                                              bool stop) {
   return stop ? 3u : (not_diag ? (is_left ? 0u : 2u) : 1u);
-}
-
-// Semi's and global's tracker of one pair over one column, the words
-// variant's: `hm` is the column's H in row m (the stripe holds row m), as
-// the int32 kernel's track_row_m.
-template <int kMode>
-__device__ __forceinline__ void track_row_m(int hm, int j, int n, int m,
-                                            int& acc, int& bi, int& bj) {
-  if (kMode == kSemi) {
-    if (j < n && hm > acc) {
-      acc = hm;
-      bi = m;
-      bj = j + 1;
-    }
-  } else if (j == n - 1) {
-    acc = hm;
-  }
 }
 
 // Local's trackers over one column of a stripe, both pairs at once: the
@@ -498,144 +466,27 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) interpair16_kernel(
   }
 }
 
-struct Args {
-  const int8_t* texts;
-  const int8_t* patterns;
-  const int32_t* ns;
-  const int32_t* ms;
-  const int32_t* score_matrix;
-  int k, gap, ge;
-  int64_t b;
-  int n_cols, m_rows, tile_pairs;
-  uint32_t *row, *frow;
-  int32_t *scores, *best_is, *best_js, *dirs, *dirs2, *trace;
-  const int64_t* groups;
+// K3-cell16's traits (interpair_host.cuh): two pairs a lane, packed scratch.
+struct Cells16 {
+  using Word = uint32_t;
+  static constexpr int kPerLane = 2;
+  template <int kMode, bool kDirs, bool kAffine, int kSB, bool kSearch>
+  static auto kernel() {
+    return interpair16_kernel<kMode, kDirs, kAffine, kSB, kSearch>;
+  }
+  // The shape in code per variant, as the int32 K3's (warps_of, block_of;
+  // probes/interpair_shapes.py --time, NVIDIA H100 80GB HBM3, 700 W):
+  // score-only, linear at most 16 warps x 8 columns, 0.872 ms (8 x 8:
+  // 1.216), affine 16 x 4, 1.121; with words, linear 8 x 4, 1.200 (16 x 2:
+  // 1.223), affine 16 x 2, 1.981 (8 x 4: 1.978).
+  static constexpr int warps_of(bool dirs, bool affine) {
+    return dirs && !affine ? 8 : kMaxWarps;
+  }
+  static constexpr int block_of(bool dirs, bool affine) {
+    if (dirs) return affine ? 2 : 4;
+    return affine ? 4 : 8;
+  }
 };
-
-template <int kMode, bool kDirs, bool kAffine, int kSB, bool kSearch>
-cudaError_t launch(const Args& a, int grid, int warps, cudaStream_t stream) {
-  const auto kernel = interpair16_kernel<kMode, kDirs, kAffine, kSB, kSearch>;
-  const int ring_bytes =
-      (kAffine ? 2 : 1) * warps * kRingCols * kWarp * sizeof(uint32_t);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, warps * kWarp, ring_bytes, stream>>>(
-      a.texts, a.patterns, a.ns, a.ms, a.score_matrix, a.k, a.gap, a.ge,
-      a.b, a.n_cols, a.m_rows, a.tile_pairs, a.row, a.frow, a.scores,
-      a.best_is, a.best_js, a.dirs, a.dirs2, a.trace, a.groups);
-  return cudaGetLastError();
-}
-
-template <int kMode, bool kDirs, bool kAffine, bool kSearch>
-cudaError_t launch_block(const Args& a, int grid, int warps, int sb,
-                         cudaStream_t stream) {
-#ifdef SA_INTERPAIR_ALL_SHAPES
-  switch (sb) {
-    case 2:
-      return launch<kMode, kDirs, kAffine, 2, kSearch>(a, grid, warps,
-                                                         stream);
-    case 4:
-      return launch<kMode, kDirs, kAffine, 4, kSearch>(a, grid, warps,
-                                                         stream);
-    case 8:
-      return launch<kMode, kDirs, kAffine, 8, kSearch>(a, grid, warps,
-                                                         stream);
-    case 16:
-      return launch<kMode, kDirs, kAffine, 16, kSearch>(a, grid, warps,
-                                                         stream);
-    default: return cudaErrorInvalidValue;
-  }
-#else
-  constexpr int kSB = block_of(kDirs, kAffine);
-  if (sb != kSB) return cudaErrorInvalidValue;
-  return launch<kMode, kDirs, kAffine, kSB, kSearch>(a, grid, warps, stream);
-#endif
-}
-
-template <int kMode>
-cudaError_t launch_mode(const Args& a, bool with_dirs, bool affine, int grid,
-                        int warps, int sb, cudaStream_t stream) {
-  // The search layout's instances of their own (score-only), so that the
-  // batch's keep their indexing.
-  if (a.groups != nullptr) {
-    return affine
-               ? launch_block<kMode, false, true, true>(a, grid, warps, sb,
-                                                        stream)
-               : launch_block<kMode, false, false, true>(a, grid, warps, sb,
-                                                         stream);
-  }
-  if (affine) {
-    return with_dirs ? launch_block<kMode, true, true, false>(a, grid, warps,
-                                                              sb, stream)
-                     : launch_block<kMode, false, true, false>(a, grid, warps,
-                                                               sb, stream);
-  }
-  return with_dirs ? launch_block<kMode, true, false, false>(a, grid, warps,
-                                                             sb, stream)
-                   : launch_block<kMode, false, false, false>(a, grid, warps,
-                                                              sb, stream);
-}
-
-// The warps a CTA runs for at most `most`: the stripes of m_rows rows
-// evened over the passes.
-int evened_warps(int most, int m_rows) {
-  const int stripes = max((m_rows + kRows - 1) / kRows, 1);
-  const int passes = (stripes + most - 1) / most;
-  return (stripes + passes - 1) / passes;
-}
-
-// The warps a CTA runs in code for a batch of b pairs on a card of `sms`
-// SMs: the variant's most (warps_of), or kMaxWarps when the grid has
-// fewer CTAs than the card has SMs (a long pair of a ragged batch then
-// runs on an SM of its own, and its chain has every warp a CTA may
-// take), evened.
-int warps_in_code(bool with_dirs, bool affine, int m_rows, int64_t b,
-                  int sms) {
-  const int64_t ctas = (b + (2 * kWarp) - 1) / (2 * kWarp);
-  const int most = ctas < sms ? kMaxWarps : warps_of(with_dirs, affine);
-  return evened_warps(most, m_rows);
-}
-
-// The number of SMs of the current device.
-cudaError_t multiprocessors(int* sms) {
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-}
-
-int fill(const int8_t* texts, const int8_t* patterns, const int32_t* ns,
-         const int32_t* ms, const int32_t* score_matrix, int k, int gap,
-         int gap_extend, int affine, int64_t b, int n_cols, int m_rows,
-         int tile_pairs, int mode, int with_dirs, int32_t* row,
-         int32_t* frow, int32_t* scores, int32_t* best_is, int32_t* best_js,
-         int32_t* dirs, int32_t* dirs2, int warps, int sb, int32_t* trace,
-         const int64_t* groups, void* stream) {
-  if (k < 1 || k > 32 || b < 0 || b % 2 || n_cols < 1 || m_rows < 1 ||
-      tile_pairs < 1 || mode < 0 || mode > 2 ||
-      (with_dirs && (m_rows % kRows || tile_pairs % 2 || b % tile_pairs)) ||
-      (groups != nullptr && (with_dirs || b % (2 * kWarp))) ||
-      (affine && (frow == nullptr || (with_dirs && dirs2 == nullptr))) ||
-      warps < 1 || warps > kMaxWarps) {
-    return cudaErrorInvalidValue;
-  }
-  if (b == 0) return cudaSuccess;
-  const int64_t blocks = (b / 2 + kWarp - 1) / kWarp;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  const Args a{texts, patterns, ns, ms, score_matrix, k, gap,
-               affine ? gap_extend : 0, b, n_cols, m_rows, tile_pairs,
-               reinterpret_cast<uint32_t*>(row),
-               reinterpret_cast<uint32_t*>(frow), scores, best_is, best_js,
-               dirs, dirs2, trace, groups};
-  const bool d = with_dirs != 0;
-  const bool af = affine != 0;
-  const int grid = static_cast<int>(blocks);
-  if (mode == kGlobal) return launch_mode<kGlobal>(a, d, af, grid, warps, sb, s);
-  if (mode == kLocal) return launch_mode<kLocal>(a, d, af, grid, warps, sb, s);
-  return launch_mode<kSemi>(a, d, af, grid, warps, sb, s);
-}
 
 }  // namespace
 
@@ -651,16 +502,10 @@ extern "C" int sa_interpair16_fill(
     int tile_pairs, int mode, int with_dirs, int32_t* row, int32_t* frow,
     int32_t* scores, int32_t* best_is, int32_t* best_js, int32_t* dirs,
     int32_t* dirs2, void* stream) {
-  const bool d = with_dirs != 0;
-  const bool af = affine != 0;
-  int sms = 0;
-  const cudaError_t err = multiprocessors(&sms);
-  if (err != cudaSuccess) return err;
-  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
-              affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
-              frow, scores, best_is, best_js, dirs, dirs2,
-              warps_in_code(d, af, m_rows, b, sms), block_of(d, af),
-              nullptr, nullptr, stream);
+  return interpair_host::fill<Cells16, true>(
+      texts, patterns, ns, ms, score_matrix, k, gap, gap_extend, affine, b,
+      n_cols, m_rows, tile_pairs, mode, with_dirs, row, frow, scores,
+      best_is, best_js, dirs, dirs2, 0, 0, nullptr, nullptr, stream);
 }
 
 // Scores of b pairs in int16 cells in the search layout; the arguments
@@ -672,35 +517,15 @@ extern "C" int sa_interpair16_search(
     const int32_t* ns, const int32_t* ms, const int32_t* score_matrix, int k,
     int gap, int gap_extend, int affine, int64_t b, int n_cols, int m_rows,
     int mode, int32_t* row, int32_t* frow, int32_t* scores, void* stream) {
-  if (groups == nullptr) return cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t err = multiprocessors(&sms);
-  if (err != cudaSuccess) return err;
-  const bool af = affine != 0;
-  // Score-only: tile_pairs (any even) places no word.
-  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
-              affine, b, n_cols, m_rows, 128, mode, 0, row, frow, scores,
-              nullptr, nullptr, nullptr, nullptr,
-              warps_in_code(false, af, m_rows, b, sms), block_of(false, af),
-              nullptr, groups, stream);
+  return interpair_host::search<Cells16>(
+      texts, groups, patterns, ns, ms, score_matrix, k, gap, gap_extend,
+      affine, b, n_cols, m_rows, mode, row, frow, scores, stream);
 }
 
-// The shape sa_interpair16_fill takes for the variant on a batch of b pairs
-// of m_rows pattern rows: out[0] warps a CTA, out[1] columns a block,
-// out[2] the most warps a CTA may run, out[3] the variant's most for a
-// grid that fills the card (warps_of); out[0] is 0 when the device
-// cannot be read.
+// The shape sa_interpair16_fill takes; out as sa_interpair_shape's.
 extern "C" void sa_interpair16_shape(int with_dirs, int affine, int m_rows,
                                      int64_t b, int* out) {
-  const bool d = with_dirs != 0;
-  const bool af = affine != 0;
-  int sms = 0;
-  out[0] = multiprocessors(&sms) == cudaSuccess
-               ? warps_in_code(d, af, m_rows, b, sms)
-               : 0;
-  out[1] = block_of(d, af);
-  out[2] = kMaxWarps;
-  out[3] = warps_of(d, af);
+  interpair_host::shape<Cells16>(with_dirs, affine, m_rows, b, out);
 }
 
 #ifdef SA_INTERPAIR_ALL_SHAPES
@@ -713,9 +538,9 @@ extern "C" int sa_interpair16_fill_shape(
     int tile_pairs, int mode, int with_dirs, int32_t* row, int32_t* frow,
     int32_t* scores, int32_t* best_is, int32_t* best_js, int32_t* dirs,
     int32_t* dirs2, int warps, int sb, int32_t* trace, void* stream) {
-  return fill(texts, patterns, ns, ms, score_matrix, k, gap, gap_extend,
-              affine, b, n_cols, m_rows, tile_pairs, mode, with_dirs, row,
-              frow, scores, best_is, best_js, dirs, dirs2, warps, sb, trace,
-              nullptr, stream);
+  return interpair_host::fill<Cells16>(
+      texts, patterns, ns, ms, score_matrix, k, gap, gap_extend, affine, b,
+      n_cols, m_rows, tile_pairs, mode, with_dirs, row, frow, scores,
+      best_is, best_js, dirs, dirs2, warps, sb, trace, nullptr, stream);
 }
 #endif

@@ -1,5 +1,6 @@
 // The chain of K3 (interpair.cu, int32 cells) and K3-cell16
-// (interpair16.cu, int16 cells): what the two kernels share.
+// (interpair16.cu, int16 cells): what the two kernels share on the card
+// (interpair_host.cuh holds what they share on the host).
 //
 // A CTA fills the DP matrices of neighbouring pairs, one pair a lane (two
 // in K3-cell16), and its W warps split the pairs' rows: warp w owns the
@@ -54,6 +55,8 @@ constexpr int kRows = 16;      // DP rows of a stripe = rows of a word
 constexpr int kRingCols = 32;  // columns a warp's ring holds
 constexpr int kMaxSpins = 1 << 24;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGlobal = 0, kLocal = 1, kSemi = 2;  // the mode argument
+constexpr int kMaxWarps = 16;  // a CTA's most: 128 registers a thread
 // A warp's trace (an all-shapes build's probe reads it): the sleeps
 // waiting for the top row, the sleeps waiting for a free ring block, and
 // the GPU's nanosecond clock (low 32 bits) at the kernel's start and after
@@ -125,6 +128,26 @@ struct Chain {
     publish(progress + warp, blocks_done);
   }
 };
+
+// Semi's and global's tracker of one pair over one column: `hm` is the
+// column's H in row m (the stripe holds row m).  Semi keeps the first
+// largest H of row m over the columns j < n (and, with words, its cell),
+// global H[m, n].  K3-cell16 tracks this way only with words.
+template <int kMode, bool kDirs = true>
+__device__ __forceinline__ void track_row_m(int hm, int j, int n, int m,
+                                            int& acc, int& bi, int& bj) {
+  if (kMode == kSemi) {
+    if (j < n && hm > acc) {
+      acc = hm;
+      if (kDirs) {
+        bi = m;
+        bj = j + 1;
+      }
+    }
+  } else if (j == n - 1) {
+    acc = hm;
+  }
+}
 
 // A tracker that beats `cur`: a larger value, or an equal one in an
 // earlier row.

@@ -11,8 +11,11 @@ Every source includes ``csrc/launch_error.cuh``, so every library
 exports ``sa_error_text``, which ``check_launch`` reads to name a failed
 launch's CUDA error; K1 and K5 include ``csrc/band_stream.cuh``, their
 bands' shared stream helpers, K3 and K3-cell16
-``csrc/interpair_chain.cuh``, their chain of warps, and K2 and K4
-``csrc/mbarrier.cuh``, their window walks' barriers.
+``csrc/interpair_chain.cuh``, their chain of warps, and
+``csrc/interpair_host.cuh``, their host side (checks, shapes, launch),
+and K2 and K4 ``csrc/mbarrier.cuh``, their window walks' barriers.  A
+header a source includes belongs in ``HEADERS``, whose contents every
+library's digest covers.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ KERNELS = ("wavefront", "walk", "interpair", "interpair16", "batch_walk",
            "strip", "probe_dpx16", "probe_chase")
 HEADERS = tuple(os.path.join(CSRC, name)
                 for name in ("launch_error.cuh", "band_stream.cuh",
-                             "interpair_chain.cuh", "mbarrier.cuh"))
+                             "interpair_chain.cuh", "interpair_host.cuh",
+                             "mbarrier.cuh"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -166,6 +166,13 @@ def _check(texts, patterns, ns, ms, score_matrix, gap, gap_extend,
         raise ValueError(f"the batch fill runs on cuda or cpu, not {device}")
 
 
+def library_name(cell16: bool) -> str:
+    """The K3 library, ``interpair``, or with ``cell16`` ``interpair16``:
+    its C entries are ``sa_<name>_fill``, ``_search``, ``_shape`` and (the
+    all-shapes build) ``_fill_shape``."""
+    return "interpair16" if cell16 else "interpair"
+
+
 def _pair_columns(x, b2):
     """(B, W) letters as [column][pair] int8, (W, b2): a warp reads
     neighbouring bytes.  Pairs past B (one, to make the batch even for
@@ -197,10 +204,9 @@ def kernel_launch(texts, patterns, ns, ms, score_matrix, gap, k_alpha,
     ``cell16``: the int16 kernel, two pairs a lane; an odd score-only
     batch gains one padding pair on the device, and its score is not
     returned."""
-    name = "interpair16" if cell16 else "interpair"
-    return shape_launch(library(name), None, texts, patterns, ns, ms,
-                        score_matrix, gap, k_alpha, local, semi,
-                        tile_pairs=tile_pairs, with_dirs=with_dirs,
+    return shape_launch(library(library_name(cell16)), None, texts,
+                        patterns, ns, ms, score_matrix, gap, k_alpha, local,
+                        semi, tile_pairs=tile_pairs, with_dirs=with_dirs,
                         gap_extend=gap_extend, cell16=cell16)
 
 
@@ -209,7 +215,7 @@ def shape_in_code(lib, with_dirs, affine, m_rows, b, cell16=False):
     variant's most for a grid that fills the card) that ``lib``, a build
     of ``csrc/interpair.cu`` (``interpair16.cu`` with ``cell16``), takes
     for the variant on ``b`` pairs of ``m_rows`` pattern rows."""
-    name = "interpair16" if cell16 else "interpair"
+    name = library_name(cell16)
     out = (ctypes.c_int * 4)()
     fn = c_function(lib, f"sa_{name}_shape",
                     [ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -260,7 +266,7 @@ def shape_launch(lib, shape, texts, patterns, ns, ms, score_matrix, gap,
         dirs = torch.empty(out_shape, dtype=i32, device=device)
         if affine:
             dirs2 = torch.empty(out_shape, dtype=i32, device=device)
-    name = "interpair16" if cell16 else "interpair"
+    name = library_name(cell16)
     warps = (shape_in_code(lib, with_dirs, affine, m_rows, b2, cell16)[0]
              if shape is None else shape[0])
     ctas = -(-b2 // (2 * WARP if cell16 else WARP))
@@ -406,7 +412,7 @@ def search_score(texts, groups, width: int, ns, query, score_matrix, gap,
                 not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} on "
                              f"{texts.device}")
-    name = "interpair16" if cell16 else "interpair"
+    name = library_name(cell16)
     affine = gap_extend is not None
     device = texts.device
     i32 = torch.int32

@@ -1,11 +1,10 @@
 """The port's benchmark entry points on the CPU (the plain versions, under
 SEQALIGN_TORCH_DEVICE=cpu): K1's score-only ``wavefront_fill`` against
 the JAX one in interpret mode and the oracle, exactly; every verb of
-``seqalign_torch.bench.suite``, the headline and the batch-e2e record at
-tiny sizes, their output's format; and that none of them runs without a
-CUDA device unless the setting asks for the CPU."""
+``seqalign_torch.bench.suite`` at tiny sizes, its output's format; and
+that the suite's command line does not run without a CUDA device unless
+the setting asks for the CPU."""
 
-import json
 import os
 import re
 import subprocess
@@ -15,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from seqalign_torch.bench import batch_e2e, headline, suite, timing
+from seqalign_torch.bench import suite, timing
 from seqalign_torch.models import SmithWaterman
 from seqalign_torch.native import bindings
 from seqalign_torch.ops import batch_fill
@@ -169,39 +168,16 @@ def test_suite_command_line(on_cpu, capsys, argv):
     assert capsys.readouterr().out.strip()
 
 
-def test_headline_last_line_is_the_record(on_cpu, capsys):
-    record = headline.run(pairs=8, size=32, reps=1, timings=1)
-    captured = capsys.readouterr()
-    last = json.loads(captured.out.strip().splitlines()[-1])
-    assert last == record
-    assert set(last) == {"metric", "value", "unit", "vs_baseline"}
-    assert (last["metric"], last["unit"]) == ("sw_batch_fill", "GCUPS")
-    # value is GCUPS to 3 places, vs_baseline GCUPS / 14.354 to 4.
-    assert abs(last["vs_baseline"] * 14.354 - last["value"]) <= (
-        0.0005 + 0.00005 * 14.354)
-    assert re.search(r"\[headline:K3\] 8 pairs 32x32 on cpu: ",
-                     captured.err)
-
-
-def test_batch_e2e_record(on_cpu, capsys, tmp_path):
-    path = tmp_path / "record.json"
-    record = batch_e2e.run(pairs=8, size=32, warm_reps=2, out=str(path))
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert [x.split("]")[0] for x in lines[:3]] == [
-        "[batch-e2e:cold", "[batch-e2e:warm0", "[batch-e2e:warm1"]
-    assert json.loads(lines[-1]) == record == json.loads(path.read_text())
-    assert (record["metric"], record["pairs"], record["size"]) == (
-        "dna_batch_e2e", 8, 32)
-    assert len(record["warm_walls_s"]) == 2
-
-
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA host runs it")
-@pytest.mark.parametrize("module", ["headline", "batch_e2e"])
-def test_entry_points_need_cuda_or_the_cpu_setting(module):
+@pytest.mark.parametrize("argv", [
+    ["batch", "--size", "16", "--dna", "--pairs", "4"],
+    ["batch-e2e", "--size", "16", "--pairs", "4"],
+], ids=["batch", "batch-e2e"])
+def test_entry_points_need_cuda_or_the_cpu_setting(argv):
     env = {k: v for k, v in os.environ.items()
            if k != "SEQALIGN_TORCH_DEVICE"}
     proc = subprocess.run(
-        [sys.executable, "-m", f"seqalign_torch.bench.{module}"], cwd=REPO,
-        env=env, capture_output=True, text=True, timeout=300)
+        [sys.executable, "-m", "seqalign_torch.bench.suite", *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"metric"' not in proc.stdout

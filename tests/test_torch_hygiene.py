@@ -1,10 +1,14 @@
 """The port stands alone: importing every module of ``seqalign_torch``,
 and ``chip_smoke.py``'s imports, loads neither JAX nor ``seqalign_tpu``
 and launches no kernel.  Checked in a fresh interpreter,
-because this test process has JAX loaded already (conftest)."""
+because this test process has JAX loaded already (conftest).  And the
+kernels' libraries are digested over every header their sources
+include."""
 
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -74,9 +78,7 @@ def test_port_imports_no_jax_and_launches_nothing(tmp_path):
                  "seqalign_torch.probes.walk_costs",
                  "seqalign_torch.probes.batch_walk_shapes",
                  "seqalign_torch.bench", "seqalign_torch.bench.timing",
-                 "seqalign_torch.bench.suite",
-                 "seqalign_torch.bench.headline",
-                 "seqalign_torch.bench.batch_e2e"):
+                 "seqalign_torch.bench.suite"):
         assert name in got["modules"]
     assert got["foreign"] == []
     assert got["launches"] == [0] * 12
@@ -96,3 +98,25 @@ def test_port_sources_name_no_jax():
                     top = words[1].split(".")[0].rstrip(",")
                     assert top not in ("jax", "jaxlib", "seqalign_tpu"), (
                         f"{path}:{number}: {line.strip()}")
+
+
+def test_every_included_header_is_digested():
+    # A header missing from _build.HEADERS leaves a stale cached library
+    # after it changes, with no error: every quoted #include of a source
+    # or header names one of HEADERS, and each of HEADERS exists.
+    from seqalign_torch.ops import _build
+
+    names = {os.path.basename(path) for path in _build.HEADERS}
+    sources = sorted(glob.glob(os.path.join(_build.CSRC, "*.cu")) +
+                     glob.glob(os.path.join(_build.CSRC, "*.cuh")))
+    assert sources
+    included = set()
+    for path in sources:
+        with open(path) as f:
+            for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                                   f.read(), re.M):
+                assert name in names, f"{path} includes {name}"
+                included.add(name)
+    assert "interpair_host.cuh" in included
+    for path in _build.HEADERS:
+        assert os.path.isfile(path), path
